@@ -1,0 +1,107 @@
+"""JAX variable tree -> the port's ``state_dict`` (counterpart of the export
+direction of ``ehgr_tpu/models/torch_import.py``, for the ResNet / TSN /
+ACTION subset the port has).
+
+Input is the flax variable tree flattened to ``{path-tuple: array}``, as
+``flax.traverse_util.flatten_dict`` gives it (first element the collection:
+``params`` or ``batch_stats``; others are skipped).  Each path is rewritten
+to its torch key by name rules and each tensor transposed by rank:
+
+  conv2d kernel [kh,kw,I,O]       -> [O,I,kh,kw]   (also depthwise)
+  conv3d kernel [kt,kh,kw,I,O]    -> [O,I,kt,kh,kw]
+  conv1d kernel [k,I,O]           -> [O,I,k]
+  dense  kernel [I,O]             -> [O,I]; [O,I,1,1] at the ACTION 1x1 sites
+  shift_w [3,C]                   -> action_shift.weight [C,1,3]
+
+Name rules: ``layer{i}_{j}`` -> ``layer{i}.{j}``; ``downsample_conv/bn`` ->
+``downsample.0/1``; ACTION children ``pK_*`` -> ``action_pK_*``; BN leaves
+``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+_ACTION_CHILD = {
+    "p1_conv": "action_p1_conv1",
+    "p2_squeeze": "action_p2_squeeze",
+    "p2_conv1": "action_p2_conv1",
+    "p2_expand": "action_p2_expand",
+    "p3_squeeze": "action_p3_squeeze",
+    "p3_bn1": "action_p3_bn1",
+    "p3_conv1": "action_p3_conv1",
+    "p3_expand": "action_p3_expand",
+}
+_BN_LEAF = {"scale": "weight", "mean": "running_mean",
+            "var": "running_var"}
+# flax Dense leaves whose torch counterpart is a 1x1 Conv2d
+_1X1_DENSE = ("action_p2_squeeze.weight", "action_p2_expand.weight",
+              "action_p3_expand.weight")
+# modules of surfaces the port does not have yet
+_NOT_PORTED = ("scala", "middle_fc", "global_decoder", "local_decoder",
+               "local_skel_decoder", "global_skel_decoder", "text_encoder")
+
+
+def torch_key(path: Tuple[str, ...]) -> str:
+    """A flax variable path (collection stripped) -> its torch key."""
+    *parts, leaf = path
+    out = []
+    for p in parts:
+        if p.startswith(_NOT_PORTED):
+            raise NotImplementedError(
+                f"{'/'.join(path)}: surface not ported yet (ROADMAP: "
+                "MTMM/SD/middle surfaces)")
+        if p.startswith("layer") and "_" in p:
+            stage, block = p[5:].split("_")
+            out += [f"layer{stage}", block]
+        elif p == "downsample_conv":
+            out += ["downsample", "0"]
+        elif p == "downsample_bn":
+            out += ["downsample", "1"]
+        else:
+            out.append(_ACTION_CHILD.get(p, p))
+    if leaf == "shift_w":
+        out.append("action_shift")
+        leaf = "weight"
+    elif leaf == "kernel":
+        leaf = "weight"
+    else:
+        leaf = _BN_LEAF.get(leaf, leaf)
+    return ".".join(out + [leaf])
+
+
+def convert_tensor(t: np.ndarray, key: str) -> np.ndarray:
+    """Transpose a flax leaf to torch layout (see the module docstring)."""
+    t = np.array(t, np.float32)        # a writable copy for torch
+    if key.endswith("action_shift.weight"):
+        return np.ascontiguousarray(t.T[:, None, :])
+    if t.ndim == 2 and key.endswith(_1X1_DENSE):
+        return np.ascontiguousarray(t.T[:, :, None, None])
+    if t.ndim >= 2:
+        order = tuple(range(t.ndim - 1, t.ndim - 3, -1)) + \
+            tuple(range(t.ndim - 2))                  # (O, I, *spatial)
+        return np.ascontiguousarray(t.transpose(order))
+    return np.ascontiguousarray(t)
+
+
+def state_dict_from_jax(flat: Mapping[Tuple[str, ...], np.ndarray]
+                        ) -> Dict[str, torch.Tensor]:
+    """Flattened JAX variables -> the port's ``state_dict`` (f32 CPU
+    tensors, no BN ``num_batches_tracked``)."""
+    sd = {}
+    for path, leaf in flat.items():
+        if path[0] not in ("params", "batch_stats"):
+            continue
+        key = torch_key(tuple(path[1:]))
+        sd[key] = torch.from_numpy(convert_tensor(np.asarray(leaf), key))
+    return sd
+
+
+def load_jax_variables(model: nn.Module,
+                       flat: Mapping[Tuple[str, ...], np.ndarray]) -> None:
+    """Load converted JAX weights into ``model`` with ``strict=True``."""
+    model.load_state_dict(state_dict_from_jax(flat), strict=True)
