@@ -1,9 +1,9 @@
 """Typed configuration of the port: its own copy of the JAX package's
-``DataConfig``, ``ModelConfig``, ``Config`` and ``PRESETS``
-(``ehgr_tpu/configs.py``), so the port imports nothing of that package.
+``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``LossConfig``, ``Config``
+and ``PRESETS`` (``ehgr_tpu/configs.py``), so the port imports nothing of
+that package.
 
-Only the data and model settings are carried over; the optimizer, loss,
-mesh and run settings arrive with the training slice.
+The mesh and run settings arrive with the data layer and the loop.
 """
 
 from __future__ import annotations
@@ -67,8 +67,9 @@ class ModelConfig:
     fc_lr5: bool = True
     pretrain: str = "imagenet"
     remat: bool = False
-    # ACTION kernel mode: 'vjp' and None/'none' take the plain formulation
-    # at eval; 'mega' the action_stats/action_apply kernels
+    # ACTION kernel mode: at eval 'vjp' and None/'none' take the plain
+    # formulation, 'mega' the action_stats/action_apply kernels; in training
+    # 'vjp' runs the kernel region (ops/action_vjp.py), the others autograd
     action_fused: Optional[str] = "vjp"
     quantize: object = False
     action_stages: Tuple[int, ...] = (1, 2, 3, 4)
@@ -77,9 +78,43 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class OptimConfig:
+    """SGD + 9-group lr/decay policy + step decay."""
+
+    lr: float = 0.00125
+    momentum: float = 0.9
+    weight_decay: float = 1e-5
+    lr_steps: Tuple[int, ...] = (10, 15, 20)   # epochs at which lr *= 0.1
+    gamma: float = 0.1
+    epochs: int = 25
+    # declared but never applied in the reference trainers; None matches
+    # the actual runs
+    clip_gradient: Optional[float] = None
+    ema_decay: float = 0.9999                  # 0.999 for NvGesture
+    # False = single param group; True = the 9-group lr/decay policy walk
+    policies: bool = True
+    # >1 = gradient accumulation: each batch in this many microbatches, one
+    # optimizer/EMA update per batch (train/steps.py)
+    accum_steps: int = 1
+
+
+@dataclass(frozen=True)
+class LossConfig:
+    """MTMM + SD loss weights."""
+
+    depth_weight: float = 0.01        # CE + w * MSE(depth)
+    depth_size: int = 56              # GT depth resized to 56x56
+    temperature: float = 3.0          # KD softmax temperature
+    alpha: float = 0.1                # KD mixing: (1-a)*CE + a*KD
+    beta: float = 1e-6                # feature-hint weight
+
+
+@dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
+    loss: LossConfig = field(default_factory=LossConfig)
 
     def replace(self, **kw) -> "Config":
         return replace(self, **kw)
@@ -101,6 +136,7 @@ def _ego_base(**model_kw) -> Config:
         data=DataConfig(dataset="EgoGesture", num_classes=83,
                         scale_size=224, crop_size=224, test_crops=1),
         model=ModelConfig(num_classes=83, **model_kw),
+        optim=OptimConfig(epochs=25, lr_steps=(10, 15, 20)),
     )
 
 
@@ -111,6 +147,7 @@ def _nv_base(**model_kw) -> Config:
                         scale_size=256, crop_size=256, train_crop_size=224,
                         test_crops=3),
         model=ModelConfig(num_classes=25, **model_kw),
+        optim=OptimConfig(epochs=80, lr_steps=(50, 60, 70), ema_decay=0.999),
     )
 
 

@@ -1,6 +1,6 @@
 """JAX variable tree -> the port's ``state_dict`` (counterpart of the export
 direction of ``ehgr_tpu/models/torch_import.py``, for the ResNet / TSN /
-ACTION subset the port has).
+ACTION / MTMM-decoder subset the port has).
 
 Input is the flax variable tree flattened to ``{path-tuple: array}``, as
 ``flax.traverse_util.flatten_dict`` gives it (first element the collection:
@@ -14,8 +14,10 @@ to its torch key by name rules and each tensor transposed by rank:
   shift_w [3,C]                   -> action_shift.weight [C,1,3]
 
 Name rules: ``layer{i}_{j}`` -> ``layer{i}.{j}``; ``downsample_conv/bn`` ->
-``downsample.0/1``; ACTION children ``pK_*`` -> ``action_pK_*``; BN leaves
-``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
+``downsample.0/1``; ACTION children ``pK_*`` -> ``action_pK_*``; decoder
+``global_decoder/{conv0..4,bn0..3}`` -> ``global_decoder.{nn.Sequential
+index}``; BN leaves ``scale/bias/mean/var`` ->
+``weight/bias/running_mean/running_var``.
 """
 
 from __future__ import annotations
@@ -41,9 +43,14 @@ _BN_LEAF = {"scale": "weight", "mean": "running_mean",
 # flax Dense leaves whose torch counterpart is a 1x1 Conv2d
 _1X1_DENSE = ("action_p2_squeeze.weight", "action_p2_expand.weight",
               "action_p3_expand.weight")
+# the MTMM global decoder's layers -> their nn.Sequential indices
+# ([conv, bn, relu, up] x 3 + [conv, bn, relu] + conv1x1 + sigmoid)
+_DECODER_SEQ = {"conv0": "0", "bn0": "1", "conv1": "4", "bn1": "5",
+                "conv2": "8", "bn2": "9", "conv3": "12", "bn3": "13",
+                "conv4": "15"}
 # modules of surfaces the port does not have yet
-_NOT_PORTED = ("scala", "middle_fc", "global_decoder", "local_decoder",
-               "local_skel_decoder", "global_skel_decoder", "text_encoder")
+_NOT_PORTED = ("scala", "middle_fc", "local_decoder", "local_skel_decoder",
+               "global_skel_decoder", "text_encoder")
 
 
 def torch_key(path: Tuple[str, ...]) -> str:
@@ -62,6 +69,12 @@ def torch_key(path: Tuple[str, ...]) -> str:
             out += ["downsample", "0"]
         elif p == "downsample_bn":
             out += ["downsample", "1"]
+        elif out == ["global_decoder"]:
+            if p not in _DECODER_SEQ:
+                raise NotImplementedError(
+                    f"{'/'.join(path)}: not the MTMM global decoder (the "
+                    "joint-stage decoders are a ROADMAP item)")
+            out.append(_DECODER_SEQ[p])
         else:
             out.append(_ACTION_CHILD.get(p, p))
     if leaf == "shift_w":

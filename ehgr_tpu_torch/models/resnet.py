@@ -2,7 +2,9 @@
 ``ehgr_tpu/models/resnet.py``).
 
 torchvision ResNet v1 (stride on ``conv2``, 1x1 downsample); ``temporal``
-decides what ``conv1`` of each bottleneck is at build time.  Module names
+decides what ``conv1`` of each bottleneck is at build time; ``partial_bn``
+keeps every BN but the stem's on its running statistics in training,
+the ACTION ``p3_bn1`` included.  Module names
 follow the torch keys of ``export_state_dict`` (``layer{i}.{j}``,
 ``downsample.0/1``).  Activations are ``[N*T, C, H, W]`` channels_last.
 """
@@ -31,13 +33,14 @@ class Bottleneck(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False, temporal: str = "none",
                  n_segment: int = 8, shift_div: int = 8, action_fused=None,
-                 device=None):
+                 bn_frozen: bool = True, device=None):
         super().__init__()
         kw = dict(bias=False, device=device)
+        bn = dict(frozen=bn_frozen, device=device)
         if temporal == "action":
             self.conv1 = ActionConv(in_planes, planes, n_segment,
                                     shift_div=shift_div, fused=action_fused,
-                                    device=device)
+                                    bn_frozen=bn_frozen, device=device)
         elif temporal == "tsm":
             self.conv1 = TSMConv(in_planes, planes, n_segment,
                                  shift_div=shift_div, device=device)
@@ -45,15 +48,15 @@ class Bottleneck(nn.Module):
             self.conv1 = Conv2d(in_planes, planes, 1, **kw)
         else:
             raise ValueError(f"unknown temporal module {temporal!r}")
-        self.bn1 = BatchNorm(planes, device=device)
+        self.bn1 = BatchNorm(planes, **bn)
         # explicit pad 1 on the strided 3x3, torch's own semantics
         self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, **kw)
-        self.bn2 = BatchNorm(planes, device=device)
+        self.bn2 = BatchNorm(planes, **bn)
         self.conv3 = Conv2d(planes, planes * 4, 1, **kw)
-        self.bn3 = BatchNorm(planes * 4, device=device)
+        self.bn3 = BatchNorm(planes * 4, **bn)
         self.downsample = nn.Sequential(
             Conv2d(in_planes, planes * 4, 1, stride=stride, **kw),
-            BatchNorm(planes * 4, device=device)) if has_downsample else None
+            BatchNorm(planes * 4, **bn)) if has_downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         out = torch.relu(self.bn1(self.conv1(x)))
@@ -71,7 +74,8 @@ class ResNetBackbone(nn.Module):
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  temporal: str = "action", n_segment: int = 8,
                  shift_div: int = 8, action_fused=None,
-                 action_stages: Sequence[int] = (1, 2, 3, 4), device=None):
+                 action_stages: Sequence[int] = (1, 2, 3, 4),
+                 partial_bn: bool = True, device=None):
         super().__init__()
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
                             device=device)
@@ -89,7 +93,8 @@ class ResNetBackbone(nn.Module):
                     temporal=temporal if (j % n_round == 0 and
                                           i in action_stages) else "none",
                     n_segment=n_segment, shift_div=shift_div,
-                    action_fused=action_fused, device=device))
+                    action_fused=action_fused, bn_frozen=partial_bn,
+                    device=device))
                 in_planes = p * 4
             setattr(self, f"layer{i}", nn.Sequential(*blocks))
 

@@ -11,8 +11,11 @@ sum.
   out = net(x_shift * (g_ste + g_ce + g_me + 3))
 
 Modules take ``[N*T, C, H, W]`` in ``channels_last``; the gates work on the
-free ``[N, T, S, C]`` view.  Submodule names are the reference's torch keys
-(``action_shift``, ``action_p1_conv1``, ..., ``net``), which
+free ``[N, T, S, C]`` view.  In training, mode ``'vjp'`` runs the gate block
+as one autograd region on the kernels (``ops/action_vjp.py``); the other
+modes take plain autograd of the formulation above, as the JAX package does
+(``'mega'`` is an eval formulation).  Submodule names are the reference's
+torch keys (``action_shift``, ``action_p1_conv1``, ..., ``net``), which
 ``export_state_dict`` emits, so converted JAX weights load strictly.
 Weights are cast to the input's dtype at use, as flax does.
 """
@@ -25,6 +28,7 @@ from torch import nn
 
 from ehgr_tpu_torch.models.layers import Conv2d
 from ehgr_tpu_torch.models.norm import BatchNorm
+from ehgr_tpu_torch.ops.action_vjp import ActionRegion
 from ehgr_tpu_torch.ops.kernels.action_mega import (action_apply,
                                                     action_stats,
                                                     ste_stencil)
@@ -59,14 +63,17 @@ class _ShiftTaps(nn.Module):
 class ActionConv(nn.Module):
     """ACTION wrapper owning the conv it feeds.
 
-    ``fused`` selects the eval formulation: ``'mega'`` runs the
-    ``action_stats``/``action_apply`` kernels; ``None``/``False``/``'none'``/
-    ``'vjp'`` run the same math as PyTorch ops (``'vjp'`` is a training
-    backward in the JAX package, plain at eval); ``'prologue'`` is not
-    ported yet.  ``features=0`` is the gate-only ``ActionGate``."""
+    ``fused`` selects the formulation: at eval ``'mega'`` runs the
+    ``action_stats``/``action_apply`` kernels and ``None``/``False``/
+    ``'none'``/``'vjp'`` the same math as PyTorch ops; in training ``'vjp'``
+    runs ``ActionRegion`` (the kernels forward, a hand-structured backward)
+    and every other mode plain autograd.  ``'prologue'`` is not ported yet.
+    ``bn_frozen`` keeps the ME branch's BN on its running statistics in
+    training (partial BN).  ``features=0`` is the gate-only ``ActionGate``."""
 
     def __init__(self, in_channels: int, features: int, n_segment: int,
-                 shift_div: int = 8, fused=None, device=None):
+                 shift_div: int = 8, fused=None, bn_frozen: bool = True,
+                 device=None):
         super().__init__()
         if fused not in _MODES:
             raise ValueError(f"unknown ActionConv mode {fused!r}")
@@ -85,7 +92,7 @@ class ActionConv(nn.Module):
         self.action_p2_conv1 = nn.Conv1d(cr, cr, 3, padding=1, **kw)
         self.action_p2_expand = nn.Conv2d(cr, c, 1, **kw)
         self.action_p3_squeeze = nn.Conv2d(c, cr, 1, **kw)
-        self.action_p3_bn1 = BatchNorm(cr, device=device)
+        self.action_p3_bn1 = BatchNorm(cr, frozen=bn_frozen, device=device)
         self.action_p3_conv1 = nn.Conv2d(cr, cr, 3, padding=1, groups=cr,
                                          **kw)
         self.action_p3_expand = nn.Conv2d(cr, c, 1, **kw)
@@ -93,11 +100,6 @@ class ActionConv(nn.Module):
             self.net = nn.Conv2d(c, features, 1, **kw)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "ActionConv is ported for eval only; training (the 'vjp' "
-                "backward, BN updates, bn_frozen) is the training slice "
-                "(ROADMAP)")
         nt, c, h, w = x.shape
         t = self.n_segment
         n, s, dt = nt // t, h * w, x.dtype
@@ -105,11 +107,14 @@ class ActionConv(nn.Module):
         # another layout
         x4 = x.contiguous(memory_format=torch.channels_last) \
             .permute(0, 2, 3, 1).reshape(n, t, s, c)
+        if self.training and self.mode == "vjp" and self.features > 0:
+            return _nchw(self._region(x4, h, w), nt, h, w)
         shift_w = self.action_shift.taps(dt)                    # [3, C]
         w_p3 = self.action_p3_squeeze.weight[:, :, 0, 0].t().to(dt) \
             .contiguous()                                       # [C, Cr]
         k_p1 = self.action_p1_conv1.weight[0, 0]                # [3,3,3]
-        use_mega = self.mode == "mega" and self.features > 0
+        use_mega = self.mode == "mega" and self.features > 0 and \
+            not self.training
 
         if use_mega:
             mc, pooled, x3 = action_stats(x4, shift_w, w_p3)
@@ -153,13 +158,37 @@ class ActionConv(nn.Module):
         out = gated @ self.net.weight[:, :, 0, 0].t().to(dt)
         return _nchw(out, nt, h, w)
 
+    def _region(self, x4: torch.Tensor, h: int, w: int) -> torch.Tensor:
+        """Training in mode ``'vjp'``: the gate block as ``ActionRegion``,
+        then torch's running-statistics update of the ME BN (momentum 0.1,
+        unbiased variance) when it trains."""
+        bn = self.action_p3_bn1
+        small = (self.action_p1_conv1.weight, self.action_p2_squeeze.weight,
+                 self.action_p2_conv1.weight, self.action_p2_expand.weight,
+                 bn.weight, bn.bias, self.action_p3_conv1.weight,
+                 self.action_p3_expand.weight)
+        out, mean, var = ActionRegion.apply(
+            x4, (h, w), bn.training, bn.eps,
+            self.action_shift.weight[:, 0, :].t(),
+            self.action_p3_squeeze.weight[:, :, 0, 0].t(),
+            self.net.weight[:, :, 0, 0].t(), bn.running_mean,
+            bn.running_var, *small)
+        if bn.training:
+            cnt = x4.numel() // x4.shape[-1]
+            with torch.no_grad():
+                bn.running_mean.mul_(1.0 - bn.momentum).add_(
+                    mean, alpha=bn.momentum)
+                bn.running_var.mul_(1.0 - bn.momentum).add_(
+                    var * (cnt / max(cnt - 1, 1)), alpha=bn.momentum)
+        return out
+
 
 def ActionGate(in_channels: int, n_segment: int, shift_div: int = 8,
                device=None) -> ActionConv:
     """ACTION gating without a wrapped conv (channel-preserving gated
     sum)."""
     return ActionConv(in_channels, 0, n_segment, shift_div=shift_div,
-                      device=device)
+                      bn_frozen=False, device=device)
 
 
 class TSMConv(nn.Module):

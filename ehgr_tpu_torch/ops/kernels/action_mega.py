@@ -22,39 +22,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ehgr_tpu_torch.ops.kernels.build import check_operands, launch, load
 from ehgr_tpu_torch.ops.temporal_shift import learnable_shift
-
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check(name: str, x4: torch.Tensor, **operands: torch.Tensor) -> None:
-    """Same device and dtype (fp32 or bf16) for every operand, each
-    contiguous, with the shapes the caller already asserted."""
-    if x4.dtype not in _DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {x4.dtype} (fp32 or bf16 only)")
-    for k, v in dict(x4=x4, **operands).items():
-        if v.dtype != x4.dtype or v.device != x4.device:
-            raise TypeError(f"{name}: {k} is {v.dtype} on {v.device}, x4 is "
-                            f"{x4.dtype} on {x4.device}")
-        if not v.is_contiguous():
-            raise ValueError(f"{name}: {k} is not contiguous")
-    if x4.device.type == "cuda" and \
-            x4.device.index != torch.cuda.current_device():
-        raise ValueError(f"{name}: tensors on {x4.device}, current device "
-                         f"is cuda:{torch.cuda.current_device()}")
-    if x4.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {x4.device}")
-
-
-def _launch(fn, x4: torch.Tensor, *args) -> None:
-    from ehgr_tpu_torch.ops.kernels.build import load
-
-    stream = torch.cuda.current_stream(x4.device).cuda_stream
-    err = getattr(load("action_mega"), fn)(_DTYPE_CODE[x4.dtype], *args,
-                                           stream)
-    if err != 0:
-        raise RuntimeError(f"{fn}: CUDA launch failed (cudaError {err})")
-
 
 # ---------------------------------------------------------------------------
 # sweep 1: gate statistics
@@ -78,17 +47,18 @@ def action_stats(x4: torch.Tensor, w_shift: torch.Tensor, w_p3: torch.Tensor
     if w_shift.shape != (3, c) or w_p3.dim() != 2 or w_p3.shape[0] != c:
         raise ValueError(f"action_stats: shapes {tuple(x4.shape)}, "
                          f"{tuple(w_shift.shape)}, {tuple(w_p3.shape)}")
-    _check("action_stats", x4, w_shift=w_shift, w_p3=w_p3)
+    check_operands("action_stats", x4, w_shift=w_shift, w_p3=w_p3)
     if x4.device.type == "cpu":
         return action_stats_plain(x4, w_shift, w_p3)
+    load("action_mega")                # a failed build raises here
     cr = w_p3.shape[1]
     mc = x4.new_empty((n, t, s, 1))
     pool = x4.new_empty((n, t, c))
     x3 = x4.new_empty((n, t, s, cr))
     acc = torch.empty((n, t, c), dtype=torch.float32, device=x4.device)
-    _launch("ehgr_action_stats", x4, x4.data_ptr(), w_shift.data_ptr(),
-            w_p3.data_ptr(), mc.data_ptr(), pool.data_ptr(), x3.data_ptr(),
-            acc.data_ptr(), n, t, s, c, cr)
+    launch("action_mega", "ehgr_action_stats", x4, x4.data_ptr(),
+           w_shift.data_ptr(), w_p3.data_ptr(), mc.data_ptr(),
+           pool.data_ptr(), x3.data_ptr(), acc.data_ptr(), n, t, s, c, cr)
     action_stats.launches += 1
     return mc, pool, x3
 
@@ -124,14 +94,16 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
         raise ValueError(
             f"action_apply: shapes {tuple(x4.shape)}, {tuple(w_shift.shape)}"
             f", {tuple(g1.shape)}, {tuple(gch.shape)}, {tuple(w_net.shape)}")
-    _check("action_apply", x4, w_shift=w_shift, g1=g1, gch=gch, w_net=w_net)
+    check_operands("action_apply", x4, w_shift=w_shift, g1=g1, gch=gch,
+                   w_net=w_net)
     if x4.device.type == "cpu":
         return action_apply_plain(x4, w_shift, g1, gch, w_net)
+    load("action_mega")                # a failed build raises here
     f = w_net.shape[1]
     out = x4.new_empty((n, t, s, f))
-    _launch("ehgr_action_apply", x4, x4.data_ptr(), w_shift.data_ptr(),
-            g1.data_ptr(), gch.data_ptr(), w_net.data_ptr(), out.data_ptr(),
-            n, t, s, c, f)
+    launch("action_mega", "ehgr_action_apply", x4, x4.data_ptr(),
+           w_shift.data_ptr(), g1.data_ptr(), gch.data_ptr(),
+           w_net.data_ptr(), out.data_ptr(), n, t, s, c, f)
     action_apply.launches += 1
     return out
 

@@ -1,5 +1,5 @@
-"""Build and load the port's CUDA kernels: ``nvcc`` into a shared library with
-a plain C interface, loaded with ``ctypes``.
+"""Build, load and call the port's CUDA kernels: ``nvcc`` into a shared
+library with a plain C interface, loaded with ``ctypes``.
 
 The library is built at first use into ``ehgr_tpu_torch/_build/`` (listed in
 ``.gitignore``), named by a hash of its sources and flags, so an edited
@@ -17,6 +17,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "_build"
@@ -36,9 +38,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ehgr_action_apply": [_I, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
     },
+    "shift": {
+        # dtype, x, w, y, n, t, s, c, vec, bx, by, gx, gy, stream
+        "ehgr_shift_fwd": [_I, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P],
+        # dtype, x, g, w, dx, part, dw, n, t, s, c, vec, bx, by, gx, gy,
+        # stream
+        "ehgr_shift_bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+# dtype argument of every entry point
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def find_nvcc() -> str:
@@ -95,3 +109,34 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
     return lib
+
+
+def check_operands(name: str, x4: torch.Tensor,
+                   **operands: torch.Tensor) -> None:
+    """Same device and dtype (fp32 or bf16) for every operand, each
+    contiguous, with the shapes the caller already asserted."""
+    if x4.dtype not in DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {x4.dtype} (fp32 or bf16 only)")
+    for k, v in dict(x4=x4, **operands).items():
+        if v.dtype != x4.dtype or v.device != x4.device:
+            raise TypeError(f"{name}: {k} is {v.dtype} on {v.device}, x4 is "
+                            f"{x4.dtype} on {x4.device}")
+        if not v.is_contiguous():
+            raise ValueError(f"{name}: {k} is not contiguous")
+    if x4.device.type == "cuda" and \
+            x4.device.index != torch.cuda.current_device():
+        raise ValueError(f"{name}: tensors on {x4.device}, current device "
+                         f"is cuda:{torch.cuda.current_device()}")
+    if x4.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {x4.device}")
+
+
+def launch(name: str, fn: str, x4: torch.Tensor, *args) -> None:
+    """Call entry point ``fn`` of library ``name`` (built first if needed)
+    with ``x4``'s dtype code, ``args`` and the current stream of ``x4``'s
+    device; raise if the launch reports a CUDA error."""
+    entry = getattr(load(name), fn)
+    stream = torch.cuda.current_stream(x4.device).cuda_stream
+    err = entry(DTYPE_CODE[x4.dtype], *args, stream)
+    if err != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed (cudaError {err})")

@@ -1,12 +1,13 @@
 """On-device preprocessing of uint8 frames (counterpart of
-``ehgr_tpu/ops/preprocess_device.py``: ``normalize_clip`` and
-``preprocess_eval_batch``)."""
+``ehgr_tpu/ops/preprocess_device.py``: ``normalize_clip``,
+``preprocess_eval_batch`` and ``depth_to_target``)."""
 
 from __future__ import annotations
 
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
@@ -41,3 +42,19 @@ def preprocess_eval_batch(frames_u8: torch.Tensor, *, scale_size: int = 224,
             f"{scale_size}, square={square_resize}); the antialiased resize "
             "is not ported yet (ROADMAP: preprocess resize)")
     return normalize_clip(frames_u8, dtype=dtype)
+
+
+def depth_to_target(depth_u8: torch.Tensor, size: int = 56) -> torch.Tensor:
+    """uint8 depth ``[N, T, H, W, 1]`` -> f32 [0, 1] targets at ``size`` x
+    ``size``: non-antialiased bilinear with half-pixel centres, torch's
+    ``interpolate`` (the reference's depth-target math, which the JAX
+    package rebuilds as a gather)."""
+    x = depth_u8.to(torch.float32) / 255.0
+    h, w = x.shape[-3], x.shape[-2]
+    if h == size and w == size:
+        return x
+    lead = x.shape[:-3]
+    x = x.reshape((-1, h, w, 1)).permute(0, 3, 1, 2)
+    x = F.interpolate(x, size=(size, size), mode="bilinear",
+                      align_corners=False, antialias=False)
+    return x.permute(0, 2, 3, 1).reshape(lead + (size, size, 1))

@@ -1,0 +1,167 @@
+"""Train and eval steps (counterpart of ``ehgr_tpu/train/steps.py``) for the
+stages the port has: ``baseline`` (arch ``tsn``, CE) and ``mtmm`` (arch
+``tsn_mtmm``, CE + w * MSE of the depth map against the next segment's
+depth resized to 56^2).  ``sd`` and ``mtmm_sd`` arrive with the SD surfaces.
+
+One step: uint8 batch to the model's device, ``normalize_clip`` in f32,
+forward in the model's compute dtype, loss, backward, the policy SGD update
+and the EMA blend of the parameters and BN running statistics.  Batches are
+``{"rgb": uint8 [N,T,H,W,3], "depth": uint8 [N,T,H,W,1] (mtmm),
+"label": [N]}``, numpy or tensors.
+
+The model holds the parameters and statistics; the step updates them, the
+optimizer's momentum and the EMA in place.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+
+from ehgr_tpu_torch.eval.metrics import topk_correct
+from ehgr_tpu_torch.ops.preprocess_device import (depth_to_target,
+                                                  normalize_clip)
+from ehgr_tpu_torch.train import losses
+from ehgr_tpu_torch.train.ema import ema_update
+from ehgr_tpu_torch.train.optim import SgdPolicies, SgdState
+
+STAGES = ("baseline", "mtmm")
+
+
+@dataclass
+class TrainState:
+    step: int
+    params: Dict[str, torch.Tensor]         # the model's parameters
+    batch_stats: Dict[str, torch.Tensor]    # the model's BN running stats
+    opt_state: SgdState
+    ema_params: Dict[str, torch.Tensor]
+    ema_batch_stats: Dict[str, torch.Tensor]
+
+
+def create_train_state(model: nn.Module, opt: SgdPolicies) -> TrainState:
+    """State over ``model``'s own tensors (``params`` and ``batch_stats``
+    are the live parameters and running statistics), with zero momentum and
+    the EMA starting at the current values."""
+    params = dict(model.named_parameters())
+    stats = {k: v for k, v in model.state_dict(keep_vars=True).items()
+             if k not in params}
+    return TrainState(
+        step=0, params=params, batch_stats=stats,
+        opt_state=opt.init(params),
+        ema_params={k: v.detach().clone() for k, v in params.items()},
+        ema_batch_stats={k: v.detach().clone() for k, v in stats.items()})
+
+
+def _to_device(batch, device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_loss_fn(model: nn.Module, *, stage: str, loss_cfg,
+                 mean: Sequence[float], std: Sequence[float]) -> Callable:
+    """``(batch on the device, generator) -> (total, aux, logits)`` of one
+    forward of ``model`` in its current mode."""
+    if stage in ("sd", "mtmm_sd"):
+        raise NotImplementedError(
+            f"stage {stage!r} is not ported yet (ROADMAP: SD surfaces)")
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage: {stage}")
+
+    def loss_fn(batch, generator):
+        rgb = normalize_clip(batch["rgb"], mean, std, dtype=torch.float32)
+        out = model(rgb, generator=generator)
+        labels = batch["label"]
+        if stage == "baseline":
+            total = losses.cross_entropy(out, labels)
+            return total, {"ce": total}, out
+        logits, depth_pred = out
+        depth_pred = depth_pred.reshape((-1,) + depth_pred.shape[-3:])
+        depth_gt = depth_to_target(batch["depth"], loss_cfg.depth_size)
+        depth_gt = depth_gt.reshape((-1,) + depth_gt.shape[2:])
+        total, aux = losses.mtmm_total(logits, labels, depth_pred, depth_gt,
+                                       depth_weight=loss_cfg.depth_weight)
+        return total, aux, logits
+
+    return loss_fn
+
+
+def make_train_step(model: nn.Module, opt: SgdPolicies, *, stage: str,
+                    loss_cfg, ema_decay: float, mean: Sequence[float],
+                    std: Sequence[float], accum_steps: int = 1) -> Callable:
+    """``(state, batch, generator) -> (state, metrics)`` for ``stage`` in
+    ``STAGES``; ``generator`` (a ``torch.Generator`` on the model's device)
+    draws the dropout masks.
+
+    ``accum_steps=A > 1``: the batch (N divisible by A) runs as A
+    microbatches in sequence (BN statistics see each in turn), the gradient
+    is their mean, and the optimizer and the EMA update once."""
+    loss_fn = make_loss_fn(model, stage=stage, loss_cfg=loss_cfg, mean=mean,
+                           std=std)
+    device = next(model.parameters()).device
+
+    def train_step(state: TrainState, batch,
+                   generator: Optional[torch.Generator] = None
+                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        batch = _to_device(batch, device)
+        n = batch["label"].shape[0]
+        if n % accum_steps:
+            raise ValueError(
+                f"batch size {n} not divisible by accum_steps={accum_steps}")
+        model.train()
+        for p in state.params.values():
+            p.grad = None
+        totals, auxes, c1, c5 = [], [], 0, 0
+        for mb in ({k: v.chunk(accum_steps)[i] for k, v in batch.items()}
+                   for i in range(accum_steps)):
+            total, aux, logits = loss_fn(mb, generator)
+            (total / accum_steps if accum_steps > 1 else total).backward()
+            k1, k5 = topk_correct(logits.detach(), mb["label"], (1, 5))
+            totals.append(total.detach())
+            auxes.append({k: v.detach() for k, v in aux.items()})
+            c1, c5 = c1 + k1, c5 + k5
+        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for k, p in state.params.items()}
+        opt.step(state.params, grads, state.opt_state)
+        ema_update(state.ema_params, state.params, ema_decay)
+        ema_update(state.ema_batch_stats, state.batch_stats, ema_decay)
+        state.step += 1
+        metrics = {"loss": torch.stack(totals).mean(),
+                   "top1": 100.0 * c1 / n, "top5": 100.0 * c5 / n}
+        metrics.update({k: torch.stack([a[k] for a in auxes]).mean()
+                        for k in auxes[0]})
+        return state, metrics
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, *, mean: Sequence[float],
+                   std: Sequence[float], use_ema: bool = False,
+                   multi_output: bool = False) -> Callable:
+    """``(state, batch) -> counts``: top-1/top-5 hits of the final head
+    (and the exits with ``multi_output``) and ``n``, with the live or the
+    EMA weights."""
+    device = next(model.parameters()).device
+
+    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        batch = _to_device(batch, device)
+        model.eval()
+        rgb = normalize_clip(batch["rgb"], mean, std, dtype=torch.float32)
+        with torch.no_grad():
+            if use_ema:
+                out = torch.func.functional_call(
+                    model, {**state.ema_params, **state.ema_batch_stats},
+                    (rgb,))
+            else:
+                out = model(rgb)
+        outs = out if isinstance(out, tuple) else (out,)
+        res = {}
+        for i, lg in enumerate(outs[:4] if multi_output else outs[:1]):
+            c1, c5 = topk_correct(lg, batch["label"], (1, 5))
+            key = "final" if i == 0 else f"mid{i}"
+            res[f"{key}_top1"], res[f"{key}_top5"] = c1, c5
+        res["n"] = torch.tensor(batch["label"].shape[0])
+        return res
+
+    return eval_step

@@ -200,10 +200,9 @@ class TestActionConv:
         assert calls == ["action_stats", "action_apply"]
 
     def test_unported_modes_raise(self):
+        """'prologue' is not ported and an unknown mode is refused; training
+        is ported (tests/test_torch_action_vjp.py)."""
         with pytest.raises(NotImplementedError, match="prologue"):
             ActionConv(C, F, T, fused="prologue", device="cpu")
         with pytest.raises(ValueError, match="unknown"):
             ActionConv(C, F, T, fused="fast", device="cpu")
-        with pytest.raises(NotImplementedError, match="eval only"):
-            ActionConv(C, F, T, device="cpu").train()(
-                torch.zeros(N * T, C, H, W))

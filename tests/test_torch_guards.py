@@ -1,7 +1,8 @@
 """Guards of the port's boundary: ``ehgr_tpu_torch`` and ``chip_smoke.py``
-import nothing of JAX, flax or the ``ehgr_tpu`` package, and
-``chip_smoke.py`` refuses to run (nonzero exit, no result) without CUDA or
-without the rest of the repository."""
+import nothing of JAX, flax or the ``ehgr_tpu`` package, a kernel wrapper
+given a CUDA tensor launches its kernel or raises (never its plain
+version), and ``chip_smoke.py`` refuses to run (nonzero exit, no result)
+without CUDA or without the rest of the repository."""
 
 import ast
 import json
@@ -13,8 +14,10 @@ import sys
 from pathlib import Path
 
 import pytest
+import torch
 
 import ehgr_tpu_torch
+from ehgr_tpu_torch.ops.kernels import action_mega, build, shift
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "ehgr_tpu_torch"
@@ -36,6 +39,13 @@ def _run(args, cwd, timeout=120):
 def test_every_module_is_found():
     mods = _modules()
     for want in ("ehgr_tpu_torch.ops.kernels.action_mega",
+                 "ehgr_tpu_torch.ops.kernels.shift",
+                 "ehgr_tpu_torch.ops.action_vjp",
+                 "ehgr_tpu_torch.models.decoders",
+                 "ehgr_tpu_torch.train.losses",
+                 "ehgr_tpu_torch.train.optim",
+                 "ehgr_tpu_torch.train.ema",
+                 "ehgr_tpu_torch.train.steps",
                  "ehgr_tpu_torch.eval.inference",
                  "ehgr_tpu_torch.models.convert"):
         assert want in mods
@@ -79,3 +89,49 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
         proc = _run([script], cwd)
         assert proc.returncode != 0
         assert '"ok"' not in proc.stdout
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports ``cuda:0``, so a wrapper takes its CUDA
+    branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+def _cuda(*shape):
+    return torch.Tensor._make_subclass(_OnCuda, torch.randn(*shape))
+
+
+@pytest.mark.parametrize("kernel", ["learnable_shift_fwd",
+                                    "learnable_shift_bwd", "action_stats",
+                                    "action_apply"])
+def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
+    """A CUDA operand and a kernel that does not build: the wrapper raises
+    the build's error; it neither runs the plain version nor counts."""
+    n, t, s, c, f = 1, 2, 3, 16, 8
+    args = {"learnable_shift_fwd": (_cuda(n, t, s, c), _cuda(3, c)),
+            "learnable_shift_bwd": (_cuda(n, t, s, c), _cuda(n, t, s, c),
+                                    _cuda(3, c)),
+            "action_stats": (_cuda(n, t, s, c), _cuda(3, c), _cuda(c, 1)),
+            "action_apply": (_cuda(n, t, s, c), _cuda(3, c),
+                             _cuda(n, t, s, 1), _cuda(n, t, c),
+                             _cuda(c, f))}[kernel]
+    mod = shift if kernel.startswith("learnable") else action_mega
+
+    def failed_build(name, verbose=False):
+        raise RuntimeError(f"nvcc failed on {name}")
+
+    def plain(*a):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "build", failed_build)
+    monkeypatch.setattr(mod, kernel + "_plain", plain)
+    wrapper = getattr(mod, kernel)
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        wrapper(*args)
+    assert wrapper.launches == before

@@ -123,13 +123,12 @@ class TestMetrics:
 class TestConfigs:
     @pytest.mark.parametrize("name", sorted(jconfigs.PRESETS))
     def test_presets_copy_the_jax_ones(self, name):
-        """The port's own copy carries the data and model settings of every
-        JAX preset unchanged."""
+        """The port's own copy carries the data, model, optimizer and loss
+        settings of every JAX preset unchanged."""
         mine, theirs = configs.get_preset(name), jconfigs.get_preset(name)
-        assert dataclasses.asdict(mine.data) == \
-            dataclasses.asdict(theirs.data)
-        assert dataclasses.asdict(mine.model) == \
-            dataclasses.asdict(theirs.model)
+        for part in ("data", "model", "optim", "loss"):
+            assert dataclasses.asdict(getattr(mine, part)) == \
+                dataclasses.asdict(getattr(theirs, part)), part
 
     def test_validate_rejects_mismatch(self):
         cfg = configs.get_preset("ego_baseline")
