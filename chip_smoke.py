@@ -13,26 +13,42 @@ Phases; any miss raises and the run exits nonzero:
 3. hold ``learnable_shift_fwd`` / ``learnable_shift_bwd`` (y, dx, dw)
    against autograd of the plain shift at the site shapes at 8 clips and
    the two ragged shapes, fp32 and bf16;
-4. serve: ``evaluate`` over ``make_score_fn`` on the full-width TSN + ACTION
+4. hold ``tsm_shift`` forward and reverse bitwise equal to the plain shift
+   at the site shapes at 8 clips and two ragged shapes, fp32 and bf16; and
+   ``action_prologue`` (x_shift, mc, pool, x3) against its plain version
+   as in 2;
+5. serve: ``evaluate`` over ``make_score_fn`` on the full-width TSN + ACTION
    ResNet-50 (T=8, 224^2, 83 classes, bf16, ``action_fused='mega'``,
    weights drawn from a seeded ``torch.Generator``) for a few request
    batches of uint8 videos, with the kernels' launch counters zeroed just
    before and read just after; then the logits against the plain path
-   (``action_fused=None``) in fp32 and in bf16;
-5. trace one scorer call with ``torch.profiler`` (device time by kernel,
-   idle share);
-6. train: ``make_train_step(stage='mtmm')`` on the full-width ``tsn_mtmm``
-   (``action_fused='vjp'``: the four kernels forward and backward; bf16
-   compute, f32 params, 8 clips of uint8 rgb and depth, dropout 0.5 from a
-   seeded generator) for a few steps, with the launch counters zeroed just
-   before and read after each step; one train step traced with
-   ``torch.profiler``; each ACTION site in training, kernel region against
-   plain autograd, fp32; and one fp32 step's loss and gradients of the
+   (``action_fused=None``) in fp32 and in bf16; one scorer call traced with
+   ``torch.profiler`` (device time by kernel, idle share);
+6. train, Stage 1: ``make_train_step(stage='mtmm')`` on the full-width
+   ``tsn_mtmm`` (``action_fused='vjp'``: the four kernels forward and
+   backward; bf16 compute, f32 params, 8 clips of uint8 rgb and depth,
+   dropout 0.5 from a seeded generator) for a few steps, with the launch
+   counters zeroed just before and read after each step; one train step
+   traced; each ACTION site in training, kernel region against plain
+   autograd, fp32; and one fp32 step's loss and gradients of the
    ``'vjp'`` model and the plain model against a float64 run;
-7. time each kernel, its plain version and a yardstick (the bare GEMM of
-   the same ``[rows, C] x [C, F]`` product for the ACTION kernels, the
-   grouped ``conv3d`` and its backward for the shift) at each site shape
-   with CUDA events.
+7. TSM: the scorer on the full-width TSN + TSM ResNet-50 (16 ``tsm_shift``
+   launches a forward), its probabilities against the plain shift's; a few
+   ``make_train_step(stage='baseline')`` steps (16 forward + 16 reverse
+   launches a step); each TSM site in training against plain autograd;
+8. train, Stage 2: the trained ``tsn_mtmm`` into ``tsn_sd`` through
+   ``merge_state_dict``, a few ``make_train_step(stage='sd')`` steps
+   (``'vjp'``: 16 launches of each of the four kernels a step), and one
+   fp32 SD step of both models against a float64 run;
+9. deploy, Stage 2: the trained ``tsn_sd`` through the 4-head scorer in
+   modes ``'prologue'`` (16 ``action_prologue`` launches a forward) and
+   ``'mega'``, the four heads against the plain model; ``tsn_middle1/2/3``
+   loaded with ``merge_state_dict`` ('prologue': 3 / 7 / 13 launches), each
+   against the SD model's exit;
+10. time each kernel, its plain version and a yardstick (the bare GEMM of
+   the same ``[rows, C] x [C, F]`` (or ``x @ W_p3``) product for the ACTION
+   kernels, the grouped ``conv3d`` and its backward for the learnable
+   shift; none for the TSM shift) at each site shape with CUDA events.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
@@ -44,12 +60,14 @@ without CUDA it exits nonzero before doing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -81,6 +99,11 @@ SHIFT_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # training batch: the recipe's 8 clips (sh/train_ego.sh), T=8, 224^2, depth
 # targets at 56^2; steps timed and counted
 TRAIN_CLIPS, TRAIN_STEPS, DEPTH_SIZE = 8, 5, 56
+# the TSM shift's fold divisor (the model's shift_div), and (S, C) off the
+# 16-byte vectors: C=100 moves one channel a thread in bf16, C=24 puts fold
+# (3) and 2*fold (6) inside the first vector
+FOLD_DIV = 8
+TSM_RAGGED = [(50, 100), (1000, 24)]
 # one ACTION site in training, 'vjp' (the kernel region) vs plain
 # autograd, fp32: output and every gradient, max |diff| / max |plain|; the
 # same math in another order (kernel sums, the region's matmul transposes)
@@ -95,6 +118,12 @@ GRAD_X, GRAD_TOL, LOSS_TOL = 1.5, 1e-3, 1e-5
 # plain ones (see compare_logits)
 LOGIT_TOL = 1e-3
 BF16_SLACK = 1.5
+# the SD model's four heads' probabilities in bf16: each mode's worst head
+# within HEADS_BF16_SLACK times the plain model's worst head's error from
+# fp32, plus LOGIT_TOL.  Head by head the plain error ranged 1.9e-3 to
+# 4.8e-3 on one input (first run of this phase, H100), so one head's own
+# error is too noisy a floor
+HEADS_BF16_SLACK = 2.0
 
 
 def _inputs(torch, n, s, c, f, dtype, gen):
@@ -308,23 +337,42 @@ def build_models(torch, seed, frames):
 
 
 def _counters():
-    """The launch counter of each kernel wrapper, by kernel name."""
+    """Kernel name -> (wrapper, attribute) of its launch counter;
+    ``tsm_shift`` counts both directions, ``tsm_shift_reverse`` the reverse
+    launches among them."""
+    from ehgr_tpu_torch.ops.kernels import action_fused as fused
     from ehgr_tpu_torch.ops.kernels import action_mega as mega
     from ehgr_tpu_torch.ops.kernels import shift as shk
+    from ehgr_tpu_torch.ops.kernels import tsm_shift as tk
 
-    return {"learnable_shift_fwd": shk.learnable_shift_fwd,
-            "learnable_shift_bwd": shk.learnable_shift_bwd,
-            "action_stats": mega.action_stats,
-            "action_apply": mega.action_apply}
+    return {"learnable_shift_fwd": (shk.learnable_shift_fwd, "launches"),
+            "learnable_shift_bwd": (shk.learnable_shift_bwd, "launches"),
+            "action_stats": (mega.action_stats, "launches"),
+            "action_apply": (mega.action_apply, "launches"),
+            "action_prologue": (fused.action_prologue, "launches"),
+            "tsm_shift": (tk.tsm_shift, "launches"),
+            "tsm_shift_reverse": (tk.tsm_shift, "reverse_launches")}
 
 
-def serve(torch, model, batches):
-    """The main path: the multi-clip scorer over request batches, with the
-    kernels' launch counters zeroed just before and read just after."""
+def reset_counters():
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def _launches():
+    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+
+
+def serve(torch, model, batches, want, name="serve", heads=1):
+    """A main path: the multi-clip scorer over request batches, with the
+    kernels' launch counters zeroed just before and read just after; each
+    forward must launch exactly ``want`` (kernel -> count, the others 0).
+    ``heads=4`` scores the SD model's four heads (``evaluate`` reads the
+    final one)."""
     from ehgr_tpu_torch.eval.inference import evaluate, make_score_fn
 
     score = make_score_fn(model, device="cuda", crop_size=CROP,
-                          dtype_name="bfloat16")
+                          dtype_name="bfloat16", heads=heads)
     score(batches[0][0])                       # warm-up: cuDNN plans
     torch.cuda.synchronize()
 
@@ -333,34 +381,33 @@ def serve(torch, model, batches):
     def recorded(frames):
         p = score(frames)
         probs.append(p)
-        return p
+        return p[0] if heads > 1 else p
 
-    counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters()
     t0 = time.perf_counter()
     res = evaluate(recorded, batches, CLASSES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _launches()
 
-    want = {k: 16 * BATCHES if k.startswith("action") else 0
-            for k in counters}
+    want = {k: want.get(k, 0) * BATCHES for k in launches}
     if launches != want:
-        raise AssertionError(f"launches {launches}, want {want} (16 sites "
-                             f"x {BATCHES} forwards, no shift kernel)")
+        raise AssertionError(f"{name}: launches {launches}, want {want} "
+                             f"({BATCHES} forwards)")
     for p in probs:
-        if p.shape != (VIDEOS, CLASSES) or \
-                not torch.isfinite(p).all() or \
-                (p.sum(-1) - 1).abs().max().item() > 1e-3:
-            raise AssertionError(f"bad video probabilities {p}")
+        for q in (p if heads > 1 else (p,)):
+            if q.shape != (VIDEOS, CLASSES) or \
+                    not torch.isfinite(q).all() or \
+                    (q.sum(-1) - 1).abs().max().item() > 1e-3:
+                raise AssertionError(f"{name}: bad video probabilities {q}")
     if res["n_videos"] != VIDEOS * BATCHES:
-        raise AssertionError(f"evaluate saw {res['n_videos']} videos")
+        raise AssertionError(f"{name}: evaluate saw {res['n_videos']} "
+                             "videos")
     clips = BATCHES * VIDEOS * CLIPS
-    out = dict(batches=BATCHES, videos=VIDEOS, clips=CLIPS,
+    out = dict(batches=BATCHES, videos=VIDEOS, clips=CLIPS, heads=heads,
                launches=launches, top1=res["top1"], top5=res["top5"],
                seconds=wall, clips_per_s=clips / wall)
-    print("serve " + json.dumps(out), flush=True)
+    print(f"{name} " + json.dumps(out), flush=True)
     return out
 
 
@@ -430,22 +477,22 @@ def make_train_batches(seed, count):
             for _ in range(count)]
 
 
-def _train_model(torch, seed, mode, dtype, dropout):
+def _train_model(torch, seed, mode, dtype, dropout, arch="tsn_mtmm",
+                 temporal="action"):
     from ehgr_tpu_torch.models.tsn import variant
 
-    return variant("tsn_mtmm", num_class=CLASSES, num_segments=T,
-                   temporal="action", action_fused=mode, partial_bn=False,
+    return variant(arch, num_class=CLASSES, num_segments=T,
+                   temporal=temporal, action_fused=mode, partial_bn=False,
                    dropout=dropout, dtype=dtype, device="cuda",
                    generator=torch.Generator().manual_seed(seed))
 
 
-def train(torch, seed):
-    """The training path: ``make_train_step(stage='mtmm')`` on the
-    full-width ``tsn_mtmm`` in bf16 with the recipe's optimizer settings.
-    One warm-up step, then TRAIN_STEPS steps with the launch counters zeroed
-    just before and read after each step (16 sites: 16 launches of each
-    kernel a step).  Returns the result and the warm (model, step, state,
-    batch, generator) for the profile."""
+def run_steps(torch, name, model, stage, seed, want):
+    """``make_train_step(stage=...)`` on ``model`` with the recipe's
+    optimizer settings: one warm-up step, then TRAIN_STEPS steps with the
+    launch counters zeroed just before and read after each step; each step
+    must launch exactly ``want`` (kernel -> count, the others 0).  Returns
+    the result and the warm (step, state, batch, generator)."""
     from ehgr_tpu_torch.configs import LossConfig, OptimConfig
     from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
                                                       IMAGENET_STD)
@@ -453,12 +500,11 @@ def train(torch, seed):
     from ehgr_tpu_torch.train.steps import (create_train_state,
                                             make_train_step)
 
-    model = _train_model(torch, seed, "vjp", torch.bfloat16, 0.5)
     opt, _ = build_optimizer(model, OptimConfig(lr=0.00125,
                                                 weight_decay=1e-5),
                              partial_bn=False)
     state = create_train_state(model, opt)
-    step = make_train_step(model, opt, stage="mtmm",
+    step = make_train_step(model, opt, stage=stage,
                            loss_cfg=LossConfig(depth_size=DEPTH_SIZE),
                            ema_decay=0.9999, mean=IMAGENET_MEAN,
                            std=IMAGENET_STD)
@@ -470,51 +516,61 @@ def train(torch, seed):
     torch.cuda.synchronize()
 
     counters = _counters()
-    for fn in counters.values():
-        fn.launches = 0
+    want = {k: want.get(k, 0) for k in counters}
+    reset_counters()
     per_step, ms, metrics = [], [], []
     for b in batches[1:]:
-        before = {k: fn.launches for k, fn in counters.items()}
+        before = _launches()
         t0 = time.perf_counter()
         _, m = step(state, b, gen)
         m = {k: float(v) for k, v in m.items()}     # synchronises
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
-        per_step.append({k: fn.launches - before[k]
-                         for k, fn in counters.items()})
+        per_step.append({k: v - before[k] for k, v in _launches().items()})
         metrics.append(m)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = _launches()
 
     for i, (c, m) in enumerate(zip(per_step, metrics)):
-        if c != {k: 16 for k in counters}:
-            raise AssertionError(f"train step {i}: launches {c}, want 16 of "
-                                 "each (16 ACTION sites)")
+        if c != want:
+            raise AssertionError(f"{name} step {i}: launches {c}, want "
+                                 f"{want}")
         if not all(math.isfinite(v) for v in m.values()):
-            raise AssertionError(f"train step {i}: metrics {m}")
+            raise AssertionError(f"{name} step {i}: metrics {m}")
     moved = sum(not torch.equal(p0[k], v) for k, v in state.params.items())
     ema_moved = sum(not torch.equal(e0[k], v)
                     for k, v in state.ema_params.items())
     if moved < len(p0) // 2 or ema_moved < len(p0) // 2:
-        raise AssertionError(f"params moved {moved}, EMA {ema_moved} of "
-                             f"{len(p0)}")
+        raise AssertionError(f"{name}: params moved {moved}, EMA "
+                             f"{ema_moved} of {len(p0)}")
     mean_ms = sum(ms) / len(ms)
-    out = dict(steps=TRAIN_STEPS, clips=TRAIN_CLIPS, launches=launches,
-               launches_per_step=per_step[0], ms_per_step=ms,
-               mean_ms_per_step=mean_ms, clips_per_s=TRAIN_CLIPS / mean_ms *
-               1e3, losses=[m["loss"] for m in metrics], metrics=metrics,
+    out = dict(stage=stage, steps=TRAIN_STEPS, clips=TRAIN_CLIPS,
+               launches=launches, launches_per_step=per_step[0],
+               ms_per_step=ms, mean_ms_per_step=mean_ms,
+               clips_per_s=TRAIN_CLIPS / mean_ms * 1e3,
+               losses=[m["loss"] for m in metrics], metrics=metrics,
                params_moved=moved, ema_moved=ema_moved, n_params=len(p0))
-    print("train " + json.dumps(out), flush=True)
+    print(f"{name} " + json.dumps(out), flush=True)
     return out, (step, state, batches[1], gen)
 
 
-def _frozen_bn_state(torch, seed, batch):
+def train(torch, seed):
+    """The Stage-1 training path: ``make_train_step(stage='mtmm')`` on the
+    full-width ``tsn_mtmm`` in bf16, ``action_fused='vjp'`` (16 sites: 16
+    launches of each of the four kernels a step)."""
+    model = _train_model(torch, seed, "vjp", torch.bfloat16, 0.5)
+    return run_steps(torch, "train", model, "mtmm", seed, {
+        "learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
+        "action_stats": 16, "action_apply": 16})
+
+
+def _frozen_bn_state(torch, seed, batch, arch="tsn_mtmm"):
     """Weights of the parity models with every BN's running statistics set
     from its input on ``batch`` (plain path, as for the scorer)."""
     from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
                                                       IMAGENET_STD,
                                                       normalize_clip)
 
-    model = _train_model(torch, seed, None, torch.float32, 0.0)
+    model = _train_model(torch, seed, None, torch.float32, 0.0, arch)
     set_bn_stats(torch, model,
                  normalize_clip(batch["rgb"], IMAGENET_MEAN, IMAGENET_STD))
     return model.state_dict()
@@ -563,16 +619,18 @@ def check_sites(torch, gen):
     return out
 
 
-def _parity_grads(torch, seed, mode, dtype, batch, state):
+def _parity_grads(torch, seed, mode, dtype, batch, state, arch="tsn_mtmm",
+                  stage="mtmm"):
     """Loss and gradients of one fp32 (or float64) forward/backward of the
-    mtmm loss; ``state``: BN statistics to load, every BN then frozen."""
+    ``stage`` loss; ``state``: BN statistics to load, every BN then
+    frozen."""
     from ehgr_tpu_torch.configs import LossConfig
     from ehgr_tpu_torch.models.norm import BatchNorm
     from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
                                                       IMAGENET_STD)
     from ehgr_tpu_torch.train.steps import make_loss_fn
 
-    model = _train_model(torch, seed, mode, torch.float32, 0.0)
+    model = _train_model(torch, seed, mode, torch.float32, 0.0, arch)
     if state is not None:
         model.load_state_dict(state)
         for m in model.modules():
@@ -580,7 +638,7 @@ def _parity_grads(torch, seed, mode, dtype, batch, state):
                 m.frozen = True
     model = model.to(dtype).train()
     model.dtype = dtype
-    loss_fn = make_loss_fn(model, stage="mtmm",
+    loss_fn = make_loss_fn(model, stage=stage,
                            loss_cfg=LossConfig(depth_size=DEPTH_SIZE),
                            mean=IMAGENET_MEAN, std=IMAGENET_STD)
     total, _, _ = loss_fn(batch, None)
@@ -589,7 +647,8 @@ def _parity_grads(torch, seed, mode, dtype, batch, state):
                           for k, p in model.named_parameters()}
 
 
-def train_parity(torch, seed):
+def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
+                 settings=("bn_batch", "bn_running")):
     """One step's loss and gradients of the full-width model: the fp32
     'vjp' kernel model and the fp32 plain model, each against a float64 run
     of the plain model from the same weights and batch (dropout 0).  The
@@ -603,13 +662,13 @@ def train_parity(torch, seed):
     batch = {k: torch.as_tensor(v).cuda()
              for k, v in make_train_batches(seed, 1)[0].items()}
     out = {}
-    for setting in ("bn_batch", "bn_running"):
-        state = _frozen_bn_state(torch, seed, batch) \
+    for setting in settings:
+        state = _frozen_bn_state(torch, seed, batch, arch) \
             if setting == "bn_running" else None
         loss64, ref = _parity_grads(torch, seed, None, torch.float64, batch,
-                                    state)
+                                    state, arch, stage)
         runs = {name: _parity_grads(torch, seed, mode, torch.float32, batch,
-                                    state)
+                                    state, arch, stage)
                 for name, mode in (("vjp", "vjp"), ("plain", None))}
         errs = {name: sorted(_rel_err(g[k], ref[k])[1] for k in ref)
                 for name, (_, g) in runs.items()}
@@ -629,7 +688,8 @@ def train_parity(torch, seed):
             vjp_vs_plain=dict(median=sorted(direct.values())[
                 len(direct) // 2], worst=max(direct.values()),
                 worst_key=max(direct, key=direct.get)))
-        print(f"train_parity {setting} " + json.dumps(r), flush=True)
+        print(f"train_parity {stage} {setting} " + json.dumps(r),
+              flush=True)
         if not loss_rel <= LOSS_TOL:
             raise AssertionError(f"{setting}: fp32 train loss vjp "
                                  f"{runs['vjp'][0]} vs plain "
@@ -640,6 +700,296 @@ def train_parity(torch, seed):
                     f"{setting}: {q} gradient error against float64: vjp "
                     f"{stat['vjp'][q]:.3e}, plain {stat['plain'][q]:.3e}")
         del runs, ref
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the third slice: the TSM shift, the ACTION prologue, TSM and Stage 2
+# ---------------------------------------------------------------------------
+
+def check_tsm(torch, tk, gen):
+    """``tsm_shift`` forward and reverse against the plain shift at the
+    site shapes at TRAIN_CLIPS clips and the ragged shapes (also at
+    ``fold_div`` 4 there, where fold splits a 16-byte vector in fp32 too),
+    fp32 and bf16: a copy, so bitwise equal.  Raises on a miss."""
+    results = []
+    shapes = [(s, c, FOLD_DIV) for s, c, _ in _shift_shapes()] + \
+        [(s, c, d) for s, c in TSM_RAGGED for d in (FOLD_DIV, 4)]
+    for s, c, fold_div in shapes:
+        for dname in ("float32", "bfloat16"):
+            x = torch.randn(TRAIN_CLIPS, T, s, c, generator=gen,
+                            device="cuda").to(getattr(torch, dname))
+            for reverse in (False, True):
+                got = tk.tsm_shift(x, fold_div, reverse)
+                want = tk.tsm_shift_plain(x, fold_div, reverse)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = torch.equal(got, want)
+                results.append(dict(kernel="tsm_shift", reverse=reverse,
+                                    S=s, C=c, fold_div=fold_div, dtype=dname,
+                                    max_abs_err=err, max_rel_err=err,
+                                    tol=0.0, ok=ok))
+                print(f"check tsm_shift {'rev' if reverse else 'fwd'} "
+                      f"S={s:4d} C={c:4d} fold_div={fold_div} {dname:8s} "
+                      f"max_abs_err={err:.3e} bitwise "
+                      f"{'ok' if ok else 'MISS'}", flush=True)
+                if not ok:
+                    raise AssertionError(
+                        f"tsm_shift (reverse={reverse}) differs from the "
+                        f"plain shift at S={s} C={c} fold_div={fold_div} "
+                        f"{dname}")
+            del x
+    return results
+
+
+def check_prologue(torch, fused, n, gen):
+    """``action_prologue`` against its plain version (in f32 from the same
+    values) at the 8 site shapes (F unused) and the 2 ragged ones, all four
+    outputs, fp32 and bf16; raises on a miss."""
+    results = []
+    for s, c, f in [site[:3] for site in SITES] + RAGGED:
+        for dname in ("float32", "bfloat16"):
+            d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen)
+            got = fused.action_prologue(d["x4"], d["w"], d["wp3"])
+            want = fused.action_prologue_plain(
+                d["x4"].float(), d["w"].float(), d["wp3"].float())
+            torch.cuda.synchronize()
+            for name, g, w in zip(("x_shift", "mc", "pool", "x3"), got,
+                                  want):
+                err, rel = _rel_err(g, w)
+                ok = rel <= TOL[dname] and math.isfinite(err)
+                results.append(dict(kernel="action_prologue", output=name,
+                                    S=s, C=c, dtype=dname, max_abs_err=err,
+                                    max_rel_err=rel, tol=TOL[dname], ok=ok))
+                print(f"check action_prologue {name:7s} S={s:4d} C={c:4d} "
+                      f"{dname:8s} max_abs_err={err:.3e} rel={rel:.3e} "
+                      f"tol={TOL[dname]:.0e} {'ok' if ok else 'MISS'}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(
+                        f"action_prologue.{name} disagrees with its plain "
+                        f"version at S={s} C={c} {dname}: rel {rel:.3e}")
+            del d, got, want
+    return results
+
+
+@contextlib.contextmanager
+def plain_tsm():
+    """``TSMConv`` with the shift taken by its plain version (autograd of
+    the copy) instead of the kernel: the plain model of the TSM paths."""
+    import ehgr_tpu_torch.ops.action as action
+    from ehgr_tpu_torch.ops.kernels.tsm_shift import tsm_shift_plain
+
+    saved = action.TsmShift
+    action.TsmShift = types.SimpleNamespace(apply=tsm_shift_plain)
+    try:
+        yield
+    finally:
+        action.TsmShift = saved
+
+
+def build_tsm_model(torch, seed, frames):
+    """The TSN + TSM ResNet-50 (f32 weights from ``seed``), BN statistics
+    set from the first batch on the plain path, bf16 compute."""
+    from ehgr_tpu_torch.models.tsn import variant
+
+    model = variant("tsn", num_class=CLASSES, num_segments=T,
+                    temporal="tsm", dtype=torch.float32, device="cuda",
+                    generator=torch.Generator().manual_seed(seed))
+    with plain_tsm():
+        set_bn_stats(torch, model, _clips(torch, frames))
+    model.dtype = torch.bfloat16
+    return model
+
+
+def compare_tsm(torch, model, frames):
+    """The TSM model's video probabilities through the kernel against the
+    plain shift, fp32 (TF32 off) and bf16: the shift is exact, so both
+    within LOGIT_TOL."""
+    from ehgr_tpu_torch.eval.inference import make_score_fn
+
+    out = {}
+    for dname in ("float32", "bfloat16"):
+        model.dtype = getattr(torch, dname)
+        score = make_score_fn(model, device="cuda", crop_size=CROP,
+                              dtype_name=dname)
+        got = score(frames)
+        with plain_tsm():
+            want = score(frames)
+        err, rel = _rel_err(got, want)
+        out[dname] = dict(max_abs_err=err, max_rel_err=rel, tol=LOGIT_TOL)
+    model.dtype = torch.bfloat16
+    print("tsm_probs " + json.dumps(out), flush=True)
+    for dname, r in out.items():
+        if not r["max_rel_err"] <= LOGIT_TOL:
+            raise AssertionError(f"TSM probabilities, kernel vs plain shift, "
+                                 f"{dname}: {r}")
+    return out
+
+
+def check_tsm_sites(torch, gen):
+    """One TSM site in training at each site shape, TRAIN_CLIPS clips, fp32:
+    ``TSMConv`` on the kernel against the plain shift's autograd from the
+    same weights, input and cotangent (output, dx, the conv's gradient).
+    Raises on a miss."""
+    from ehgr_tpu_torch.ops.action import TSMConv
+
+    out = []
+    for s, c, f, _ in SITES:
+        h = int(round(math.sqrt(s)))
+        m = TSMConv(c, f, T, shift_div=FOLD_DIV, device="cuda").train()
+        x = torch.randn(TRAIN_CLIPS * T, c, h, s // h, device="cuda",
+                        generator=gen).contiguous(
+                            memory_format=torch.channels_last)
+        cot = torch.randn(TRAIN_CLIPS * T, f, h, s // h, device="cuda",
+                          generator=gen)
+        res = {}
+        for name in ("kernel", "plain"):
+            xi = x.clone().requires_grad_()
+            m.zero_grad()
+            with plain_tsm() if name == "plain" else contextlib.nullcontext():
+                y = m(xi)
+                (y * cot).sum().backward()
+            res[name] = dict(out=y.detach(), dx=xi.grad,
+                             dw=m.net.weight.grad.clone())
+        rels = {k: _rel_err(v, res["plain"][k])[1]
+                for k, v in res["kernel"].items()}
+        r = dict(S=s, C=c, F=f, tol=SITE_TOL, **{f"{k}_rel": v
+                                                for k, v in rels.items()})
+        out.append(r)
+        print("check_tsm_site " + json.dumps(r), flush=True)
+        if not max(rels.values()) <= SITE_TOL:
+            raise AssertionError(f"TSM site S={s} C={c} F={f}: {rels}")
+        del m, res, x, cot
+    return out
+
+
+def sd_transfer(torch, seed, stage1):
+    """Stage 1 -> Stage 2: a full-width ``tsn_sd`` ('vjp', bf16 compute)
+    takes the trained ``tsn_mtmm`` tensors through ``merge_state_dict``.
+    The source's skipped keys must be exactly its ``global_decoder.*``,
+    and the keys the target keeps from its init exactly its exits'."""
+    from ehgr_tpu_torch.train.checkpoints import merge_state_dict
+
+    model = _train_model(torch, seed + 2, "vjp", torch.bfloat16, 0.5,
+                         "tsn_sd")
+    skipped = merge_state_dict(model, stage1)
+    kept = sorted(set(model.state_dict()) - set(stage1))
+    want_skipped = sorted(k for k in stage1
+                          if k.startswith("global_decoder."))
+    want_kept = sorted(k for k in model.state_dict()
+                       if k.startswith(("scala", "middle_fc")))
+    out = dict(skipped=skipped, kept_from_init=kept, n_copied=len(stage1) -
+               len(skipped))
+    print("sd_transfer " + json.dumps(out), flush=True)
+    if sorted(skipped) != want_skipped or kept != want_kept:
+        raise AssertionError("tsn_mtmm -> tsn_sd: skipped or kept keys "
+                             "differ from the global decoder / the exits")
+    return out, model
+
+
+def _head_probs(torch, outs):
+    """Each head's softmax averaged over the CLIPS clips of a video."""
+    return [torch.softmax(lg.float(), -1).reshape(-1, CLIPS, lg.shape[-1])
+            .mean(1) for lg in outs[:4]]
+
+
+def sd_deploy(torch, seed, trained, batches):
+    """The Stage-2 deploys from the trained ``tsn_sd`` weights (BN
+    statistics then set from the first batch on the plain path, as for the
+    other scorers): the 4-head scorer in modes 'prologue' and 'mega' over
+    the request batches with launch counts; the four heads' probabilities
+    of both modes against the plain model (fp32 within LOGIT_TOL; bf16
+    as HEADS_BF16_SLACK says); and ``tsn_middle1/2/3`` ('prologue'),
+    loaded with ``merge_state_dict``, with 3 / 7 / 13 launches in a bf16
+    forward, whose fp32 logits must equal the SD model's exit K within
+    LOGIT_TOL (in bf16 the two may pick other cuDNN algorithms: one bf16
+    rounding apart, 2.1e-3, in a run on the H100)."""
+    from ehgr_tpu_torch.models.tsn import variant
+    from ehgr_tpu_torch.train.checkpoints import merge_state_dict
+
+    def build(arch, mode):
+        return variant(arch, num_class=CLASSES, num_segments=T,
+                       temporal="action", action_fused=mode,
+                       dtype=torch.float32, device="cuda",
+                       generator=torch.Generator().manual_seed(seed))
+
+    models = {mode: build("tsn_sd", mode) for mode in ("prologue", "mega",
+                                                       None)}
+    plain = models[None]
+    plain.load_state_dict(trained)
+    x = _clips(torch, batches[0][0])
+    set_bn_stats(torch, plain, x)
+    for m in models.values():
+        m.load_state_dict(plain.state_dict())
+        m.dtype = torch.bfloat16
+    out = {"serve_prologue": serve(torch, models["prologue"], batches,
+                                   {"action_prologue": 16},
+                                   "sd_serve_prologue", heads=4),
+           "serve_mega": serve(torch, models["mega"], batches,
+                               {"action_stats": 16, "action_apply": 16},
+                               "sd_serve_mega", heads=4)}
+
+    probs = {}
+    with torch.inference_mode():
+        for dname in ("float32", "bfloat16"):
+            for mode, m in models.items():
+                m.dtype = getattr(torch, dname)
+                probs[dname, mode] = _head_probs(torch, m(x))
+        for m in models.values():
+            m.dtype = torch.bfloat16
+    ref = probs["float32", None]
+    heads = {}
+    for mode in ("prologue", "mega"):
+        fp32 = [_rel_err(p, r)[1] for p, r in zip(probs["float32", mode],
+                                                  ref)]
+        mine = [_rel_err(p, r)[1] for p, r in zip(probs["bfloat16", mode],
+                                                  ref)]
+        theirs = [_rel_err(p, r)[1]
+                  for p, r in zip(probs["bfloat16", None], ref)]
+        tol = HEADS_BF16_SLACK * max(theirs) + LOGIT_TOL
+        heads[mode] = dict(fp32_rel=fp32, bf16_vs_fp32_rel=mine,
+                           plain_bf16_vs_fp32_rel=theirs, bf16_tol=tol)
+        if not all(r <= LOGIT_TOL for r in fp32) or not max(mine) <= tol:
+            raise AssertionError(f"SD 4-head probabilities, {mode} vs "
+                                 f"plain: {heads[mode]}")
+    out["heads"] = heads
+
+    middles = {}
+    sd_model = models["prologue"]
+    with torch.inference_mode():
+        for k, want in ((1, 3), (2, 7), (3, 13)):
+            mid = build(f"tsn_middle{k}", "prologue")
+            skipped = merge_state_dict(mid, plain.state_dict())
+            if set(mid.state_dict()) - set(plain.state_dict()):
+                raise AssertionError(f"tsn_middle{k}: keys missing in the "
+                                     "SD model")
+            mid.dtype = torch.bfloat16
+            reset_counters()
+            logits = mid(x)                    # the deploy: bf16
+            torch.cuda.synchronize()
+            launches = _launches()
+            bf16 = _rel_err(logits, sd_model(x)[k])[1]
+            for m in (mid, sd_model):          # the comparison: fp32
+                m.dtype = torch.float32
+            err, rel = _rel_err(mid(x), sd_model(x)[k])
+            sd_model.dtype = torch.bfloat16
+            middles[k] = dict(launches=launches, skipped=len(skipped),
+                              max_abs_err=err, max_rel_err=rel,
+                              tol=LOGIT_TOL, bf16_rel=bf16)
+            if launches != {**{n: 0 for n in launches},
+                            "action_prologue": want}:
+                raise AssertionError(f"tsn_middle{k}: launches {launches}, "
+                                     f"want {want} prologue launches")
+            if not rel <= LOGIT_TOL or logits.shape != (x.shape[0],
+                                                        CLASSES):
+                raise AssertionError(f"tsn_middle{k} vs tsn_sd mid{k}: "
+                                     f"{middles[k]}")
+            del mid
+    out["middles"] = middles
+    print("sd_deploy " + json.dumps({k: v for k, v in out.items()
+                                     if k in ("heads", "middles")}),
+          flush=True)
     return out
 
 
@@ -800,6 +1150,68 @@ def time_shift(torch, shk, gen):
     return rows_out
 
 
+def time_tsm(torch, tk, gen):
+    """Per distinct (S, C) of the sites at TRAIN_CLIPS clips, bf16: the TSM
+    shift forward and reverse and the plain shift.  Bound: the bytes the
+    copy must move once (read x, write y) at 3.35 TB/s; it does no
+    arithmetic.  No single PyTorch call computes this shift (``torch.roll``
+    wraps around and moves every channel), so there is no library time."""
+    rows_out = []
+    for s, c, count in _shift_shapes():
+        x = torch.randn(TRAIN_CLIPS, T, s, c, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+        nbytes = 2 * 2 * x.numel()
+        bound = _bound_ms(nbytes, 0, "bfloat16")[0]
+        r = dict(kernel="tsm_shift", S=s, C=c, sites=count, bytes=nbytes,
+                 bound_ms=bound, bound_by="bytes",
+                 ms_forward=_time_ms(torch, lambda: tk.tsm_shift(
+                     x, FOLD_DIV)),
+                 ms_reverse=_time_ms(torch, lambda: tk.tsm_shift(
+                     x, FOLD_DIV, reverse=True)),
+                 plain_ms=_time_ms(torch, lambda: tk.tsm_shift_plain(
+                     x, FOLD_DIV)))
+        r["roofline_share"] = bound / r["ms_forward"]
+        rows_out.append(r)
+        print(f"time tsm_shift S={s:4d} C={c:4d} fwd={r['ms_forward']:.4f} "
+              f"rev={r['ms_reverse']:.4f} bound={bound:.4f} (bytes) "
+              f"plain={r['plain_ms']:.4f}", flush=True)
+        del x
+    return rows_out
+
+
+def time_prologue(torch, fused, n, gen):
+    """Per distinct (S, C) of the sites at the served batch's ``n`` clips,
+    bf16: the prologue kernel, its plain version and the bare ``x @ W_p3``
+    GEMM (no single PyTorch call computes the function).  Bound: x read
+    once, x_shift, mc, pool and x3 written once, the taps and W_p3 read
+    once, at 3.35 TB/s, beside the GEMM's FLOPs at the bf16 peak."""
+    rows_out = []
+    for s, c, count in _shift_shapes():
+        d = _inputs(torch, n, s, c, 16, torch.bfloat16, gen)
+        rows, cr, nt = n * T * s, c // 16, n * T
+        xb = d["x4"].reshape(rows, c)
+        nbytes = 2 * (2 * rows * c + 3 * c + c * cr + rows + nt * c +
+                      rows * cr)
+        t_bytes, t_ops = _bound_ms(nbytes, 2 * rows * c * cr, "bfloat16")
+        args = (d["x4"], d["w"], d["wp3"])
+        r = dict(kernel="action_prologue", S=s, C=c, sites=count, rows=rows,
+                 bytes=nbytes, bytes_ms=t_bytes, ops_ms=t_ops,
+                 bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 ms=_time_ms(torch, lambda: fused.action_prologue(*args)),
+                 plain_ms=_time_ms(torch,
+                                   lambda: fused.action_prologue_plain(*args)),
+                 matmul_ms=_time_ms(torch, lambda: xb @ d["wp3"]))
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        rows_out.append(r)
+        print(f"time action_prologue S={s:4d} C={c:4d} ms={r['ms']:.4f} "
+              f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"plain={r['plain_ms']:.4f} matmul={r['matmul_ms']:.4f}",
+              flush=True)
+        del d, xb
+    return rows_out
+
+
 def kernel_table(checks, timings, launches):
     """One entry per kernel.  The ACTION kernels' times are per forward of
     the served batch, the shift kernels' per train step (each site shape
@@ -812,7 +1224,7 @@ def kernel_table(checks, timings, launches):
         tot = {k: sum(r[k] * r["sites"] for r in t)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                          "bytes_ms", "ops_ms")}
-        by_path = {p: v[name] for p, v in launches.items() if name in v}
+        by_path = {p: v[name] for p, v in launches.items() if v.get(name)}
         table.append(dict(
             name=name, route="cuda",
             source="ehgr_tpu_torch/ops/kernels/csrc/shift.cu",
@@ -837,7 +1249,7 @@ def kernel_table(checks, timings, launches):
         tot = {k: sum(r[k] * r["sites"] for r in t)
                for k in ("ms", "plain_ms", "matmul_ms", "bound_ms",
                          "bytes_ms", "ops_ms")}
-        by_path = {p: v[name] for p, v in launches.items() if name in v}
+        by_path = {p: v[name] for p, v in launches.items() if v.get(name)}
         table.append(dict(
             name=name, route="cuda",
             source="ehgr_tpu_torch/ops/kernels/csrc/action_mega.cu",
@@ -859,6 +1271,55 @@ def kernel_table(checks, timings, launches):
                                       "plain_ms", "matmul_ms", "bound_ms",
                                       "bound_by", "roofline_share")}
                    for r in t]))
+    t = [r for r in timings if r["kernel"] == "action_prologue"]
+    c = [r for r in checks if r["kernel"] == "action_prologue"]
+    tot = {k: sum(r[k] * r["sites"] for r in t)
+           for k in ("ms", "plain_ms", "matmul_ms", "bound_ms", "bytes_ms",
+                     "ops_ms")}
+    by_path = {p: v["action_prologue"] for p, v in launches.items()
+               if v.get("action_prologue")}
+    table.append(dict(
+        name="action_prologue", route="cuda",
+        source="ehgr_tpu_torch/ops/kernels/csrc/action_mega.cu",
+        replaces="ehgr_tpu/ops/pallas/action_fused.py:60",
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=max(r["max_abs_err"] for r in c
+                        if r["dtype"] == "bfloat16"),
+        max_abs_err_fp32=max(r["max_abs_err"] for r in c
+                             if r["dtype"] == "float32"),
+        max_rel_err=max(r["max_rel_err"] for r in c),
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+        else "operations",
+        library_ms=None, matmul_ms=tot["matmul_ms"],
+        per="forward of the served batch, 20 clips",
+        sites=[{k: r[k] for k in ("S", "C", "sites", "ms", "plain_ms",
+                                  "matmul_ms", "bound_ms", "bound_by",
+                                  "roofline_share")} for r in t]))
+    t = [r for r in timings if r["kernel"] == "tsm_shift"]
+    c = [r for r in checks if r["kernel"] == "tsm_shift"]
+    tot = {k: sum(r[k] * r["sites"] for r in t)
+           for k in ("ms_forward", "ms_reverse", "plain_ms", "bound_ms")}
+    by_path = {p: v["tsm_shift"] for p, v in launches.items()
+               if v.get("tsm_shift")}
+    table.append(dict(
+        name="tsm_shift", route="cuda",
+        source="ehgr_tpu_torch/ops/kernels/csrc/tsm_shift.cu",
+        replaces="ehgr_tpu/ops/pallas/shift.py:83",
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        reverse_launches_by_path={p: v["tsm_shift_reverse"]
+                                  for p, v in launches.items()
+                                  if v.get("tsm_shift_reverse")},
+        max_abs_err=max(r["max_abs_err"] for r in c),
+        max_rel_err=max(r["max_rel_err"] for r in c),
+        ms=tot["ms_forward"] + tot["ms_reverse"],
+        ms_forward=tot["ms_forward"], ms_reverse=tot["ms_reverse"],
+        plain_ms=2 * tot["plain_ms"], bound_ms=2 * tot["bound_ms"],
+        bound_by="bytes", library_ms=None,
+        per="train step, 8 clips: 16 forward + 16 reverse launches",
+        sites=[{k: r[k] for k in ("S", "C", "sites", "ms_forward",
+                                  "ms_reverse", "plain_ms", "bound_ms",
+                                  "roofline_share")} for r in t]))
     return table
 
 
@@ -873,8 +1334,10 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from ehgr_tpu_torch.ops.kernels import action_fused as fused
     from ehgr_tpu_torch.ops.kernels import action_mega as mega
     from ehgr_tpu_torch.ops.kernels import shift as shk
+    from ehgr_tpu_torch.ops.kernels import tsm_shift as tk
     from ehgr_tpu_torch.ops.kernels.build import build, load
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -883,7 +1346,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    libs = ("action_mega", "shift")
+    libs = ("action_mega", "shift", "tsm_shift")
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         list(pool.map(lambda name: build(name, verbose=True), libs))
     for name in libs:                              # -Xptxas -v printed
@@ -893,32 +1356,93 @@ def main(argv=None) -> int:
 
     n = VIDEOS * CLIPS                         # clips per forward
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
-    checks, pool_acc = check_kernels(torch, mega, n, gen)
-    checks += check_shift(torch, shk, gen)
+    phases = {}
+
+    def phase(name, fn, *a):
+        t = time.perf_counter()
+        out = fn(*a)
+        phases[name] = time.perf_counter() - t
+        return out
+
+    checks, pool_acc = phase("check_action", check_kernels, torch, mega, n,
+                             gen)
+    checks += phase("check_shift", check_shift, torch, shk, gen)
+    checks += phase("check_tsm", check_tsm, torch, tk, gen)
+    checks += phase("check_prologue", check_prologue, torch, fused, n, gen)
     batches = make_batches(args.seed)
+
+    # PR 1's path: the ACTION scorer ('mega')
     model, plain = build_models(torch, args.seed, batches[0][0])
-    served = serve(torch, model, batches)
+    served = phase("serve", serve, torch, model, batches,
+                   {"action_stats": 16, "action_apply": 16})
     logits = compare_logits(torch, model, plain, batches[0][0])
     del plain
     prof = profile_forward(torch, model, batches[0][0])
     del model
-    trained, warm = train(torch, args.seed)
+
+    # PR 2's path: the Stage-1 train step; its weights seed Stage 2
+    trained, warm = phase("train", train, torch, args.seed)
     train_prof = profile_train(torch, warm)
+    stage1 = {k: v.detach() for k, v in {**warm[1].params,
+                                         **warm[1].batch_stats}.items()}
     del warm
-    sites = check_sites(torch, gen)
-    parity = train_parity(torch, args.seed)
-    timings = time_kernels(torch, mega, n, gen) + time_shift(torch, shk, gen)
+    sites = phase("train_sites", check_sites, torch, gen)
+    parity = phase("train_parity", train_parity, torch, args.seed)
+
+    # TSM: serve and train through tsm_shift
+    tsm_model = build_tsm_model(torch, args.seed, batches[0][0])
+    tsm_served = phase("tsm_serve", serve, torch, tsm_model, batches,
+                       {"tsm_shift": 16}, "tsm_serve")
+    tsm_probs = compare_tsm(torch, tsm_model, batches[0][0])
+    del tsm_model
+    tsm_trained, _ = phase(
+        "tsm_train", run_steps, torch, "tsm_train",
+        _train_model(torch, args.seed, None, torch.bfloat16, 0.5, "tsn",
+                     "tsm"), "baseline", args.seed,
+        {"tsm_shift": 32, "tsm_shift_reverse": 16})
+    tsm_sites = phase("tsm_sites", check_tsm_sites, torch, gen)
+
+    # Stage 2: SD training from the Stage-1 weights, then its deploys
+    transfer, sd_model = sd_transfer(torch, args.seed, stage1)
+    del stage1
+    sd_trained, _ = phase("sd_train", run_steps, torch, "sd_train",
+                          sd_model, "sd", args.seed,
+                          {"learnable_shift_fwd": 16,
+                           "learnable_shift_bwd": 16, "action_stats": 16,
+                           "action_apply": 16})
+    sd_state = {k: v.detach().clone()
+                for k, v in sd_model.state_dict().items()}
+    del sd_model
+    sd_parity = phase("sd_parity", train_parity, torch, args.seed, "tsn_sd",
+                      "sd", ("bn_batch",))
+    deploy = phase("sd_deploy", sd_deploy, torch, args.seed, sd_state,
+                   batches)
+
+    timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
+                    time_shift(torch, shk, gen) + time_tsm(torch, tk, gen) +
+                    time_prologue(torch, fused, n, gen))
+    print("phase_seconds " + json.dumps(phases), flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
-    table = kernel_table(checks, timings, {"serve": served["launches"],
-                                           "train": trained["launches"]})
+    paths = {"serve": served, "train": trained, "tsm_serve": tsm_served,
+             "tsm_train": tsm_trained, "sd_train": sd_trained,
+             "sd_serve_prologue": deploy["serve_prologue"],
+             "sd_serve_mega": deploy["serve_mega"],
+             **{f"tsn_middle{k}": v
+                for k, v in deploy["middles"].items()}}
+    table = kernel_table(checks, timings,
+                         {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
                       "pool_accumulation": pool_acc, "profile": prof,
                       "train": trained, "train_profile": train_prof,
                       "train_sites": sites, "train_parity": parity,
-                      "card": smi}))
+                      "tsm_serve": tsm_served, "tsm_probs": tsm_probs,
+                      "tsm_train": tsm_trained, "tsm_sites": tsm_sites,
+                      "sd_transfer": transfer, "sd_train": sd_trained,
+                      "sd_parity": sd_parity, "sd_deploy": deploy,
+                      "phase_seconds": phases, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

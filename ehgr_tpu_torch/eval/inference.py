@@ -21,10 +21,14 @@ from ehgr_tpu_torch.ops.preprocess_device import preprocess_eval_batch
 
 def make_score_fn(model: torch.nn.Module, *, device: DeviceLike = None,
                   scale_size: int = 224, crop_size: int = 224,
-                  square_resize: bool = True,
-                  dtype_name: str = "bfloat16") -> Callable:
+                  square_resize: bool = True, dtype_name: str = "bfloat16",
+                  heads: int = 1) -> Callable:
     """``frames_u8 [V,K,T,H,W,3]`` (numpy or tensor) -> ``video_probs
-    [V, classes]`` on ``device`` (default CUDA; the model must live there)."""
+    [V, classes]`` on ``device`` (default CUDA; the model must live there).
+
+    ``heads > 1`` votes on each of the model's first ``heads`` outputs (the
+    SD model's final head and its exits, ``eval/runner.py``'s 4-head test)
+    and returns their ``video_probs`` as a tuple."""
     dev = resolve_device(device)
     dtype = getattr(torch, dtype_name)
     model.eval()
@@ -36,9 +40,11 @@ def make_score_fn(model: torch.nn.Module, *, device: DeviceLike = None,
         x = preprocess_eval_batch(x, scale_size=scale_size,
                                   crop_size=crop_size,
                                   square_resize=square_resize, dtype=dtype)
-        logits = model(x.reshape((v * k, t) + x.shape[3:]))   # [V*K, C]
-        probs = torch.softmax(logits, dim=-1)
-        return probs.reshape(v, k, -1).mean(dim=1)             # clip voting
+        out = model(x.reshape((v * k, t) + x.shape[3:]))      # [V*K, C]
+        outs = out if isinstance(out, tuple) else (out,)
+        probs = tuple(torch.softmax(lg, dim=-1).reshape(v, k, -1)
+                      .mean(dim=1) for lg in outs[:heads])     # clip voting
+        return probs if heads > 1 else probs[0]
 
     return score
 

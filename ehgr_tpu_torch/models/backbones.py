@@ -12,13 +12,13 @@ _NOT_PORTED = ("res2net50", "res2net50_26w_4s", "mobilenet_v2",
 def get_backbone(base_model: str, temporal: str, n_segment: int,
                  shift_div: int, action_fused=None,
                  action_stages=(1, 2, 3, 4), partial_bn: bool = True,
-                 device=None) -> ResNetBackbone:
+                 stages: int = 4, device=None) -> ResNetBackbone:
     if base_model in STAGE_SIZES:
         return ResNetBackbone(
             stage_sizes=STAGE_SIZES[base_model], temporal=temporal,
             n_segment=n_segment, shift_div=shift_div,
             action_fused=action_fused, action_stages=tuple(action_stages),
-            partial_bn=partial_bn, device=device)
+            partial_bn=partial_bn, stages=stages, device=device)
     if base_model in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {base_model!r} is not ported yet (ROADMAP: other "

@@ -1,6 +1,6 @@
 """JAX variable tree -> the port's ``state_dict`` (counterpart of the export
 direction of ``ehgr_tpu/models/torch_import.py``, for the ResNet / TSN /
-ACTION / MTMM-decoder subset the port has).
+ACTION / MTMM-decoder / SD-exit subset the port has).
 
 Input is the flax variable tree flattened to ``{path-tuple: array}``, as
 ``flax.traverse_util.flatten_dict`` gives it (first element the collection:
@@ -16,8 +16,9 @@ to its torch key by name rules and each tensor transposed by rank:
 Name rules: ``layer{i}_{j}`` -> ``layer{i}.{j}``; ``downsample_conv/bn`` ->
 ``downsample.0/1``; ACTION children ``pK_*`` -> ``action_pK_*``; decoder
 ``global_decoder/{conv0..4,bn0..3}`` -> ``global_decoder.{nn.Sequential
-index}``; BN leaves ``scale/bias/mean/var`` ->
-``weight/bias/running_mean/running_var``.
+index}``; ``scala{k}/sep{i}/{dw1,pw1,bn1,dw2,pw2,bn2}`` ->
+``scala{k}.{i}.op.{0,1,2,4,5,6}``; ``middle_fc{k}`` keeps its name; BN
+leaves ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
 """
 
 from __future__ import annotations
@@ -48,9 +49,12 @@ _1X1_DENSE = ("action_p2_squeeze.weight", "action_p2_expand.weight",
 _DECODER_SEQ = {"conv0": "0", "bn0": "1", "conv1": "4", "bn1": "5",
                 "conv2": "8", "bn2": "9", "conv3": "12", "bn3": "13",
                 "conv4": "15"}
-# modules of surfaces the port does not have yet
-_NOT_PORTED = ("scala", "middle_fc", "local_decoder", "local_skel_decoder",
-               "global_skel_decoder", "text_encoder")
+# SepConv layers -> their indices in the reference's nn.Sequential ``op``
+_SEPCONV_SEQ = {"dw1": "0", "pw1": "1", "bn1": "2", "dw2": "4", "pw2": "5",
+                "bn2": "6"}
+# modules of surfaces the port does not have yet (the joint stage's heads)
+_NOT_PORTED = ("local_decoder", "local_skel_decoder", "global_skel_decoder",
+               "text_encoder")
 
 
 def torch_key(path: Tuple[str, ...]) -> str:
@@ -60,8 +64,8 @@ def torch_key(path: Tuple[str, ...]) -> str:
     for p in parts:
         if p.startswith(_NOT_PORTED):
             raise NotImplementedError(
-                f"{'/'.join(path)}: surface not ported yet (ROADMAP: "
-                "MTMM/SD/middle surfaces)")
+                f"{'/'.join(path)}: surface not ported yet (ROADMAP: the "
+                "joint stage)")
         if p.startswith("layer") and "_" in p:
             stage, block = p[5:].split("_")
             out += [f"layer{stage}", block]
@@ -69,6 +73,10 @@ def torch_key(path: Tuple[str, ...]) -> str:
             out += ["downsample", "0"]
         elif p == "downsample_bn":
             out += ["downsample", "1"]
+        elif out and out[-1].startswith("scala") and p.startswith("sep"):
+            out += [p[3:], "op"]
+        elif out and out[-1] == "op":
+            out.append(_SEPCONV_SEQ[p])
         elif out == ["global_decoder"]:
             if p not in _DECODER_SEQ:
                 raise NotImplementedError(

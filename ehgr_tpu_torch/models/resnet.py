@@ -69,20 +69,22 @@ class Bottleneck(nn.Module):
 class ResNetBackbone(nn.Module):
     """ResNet with per-stage taps: ``forward`` returns ``stem``
     (post-maxpool), ``layer1..4`` and ``pool`` (global average,
-    ``[NT, C]``); stages past ``max_stage`` are not run."""
+    ``[NT, C]``); stages past ``max_stage`` are not run.  ``stages`` builds
+    only the first ones (a truncated deploy model has no deeper weights)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  temporal: str = "action", n_segment: int = 8,
                  shift_div: int = 8, action_fused=None,
                  action_stages: Sequence[int] = (1, 2, 3, 4),
-                 partial_bn: bool = True, device=None):
+                 partial_bn: bool = True, stages: int = 4, device=None):
         super().__init__()
+        self.stages = stages
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
                             device=device)
         self.bn1 = BatchNorm(64, device=device)
         in_planes = 64
         for i, (n_blocks, p) in enumerate(
-                zip(stage_sizes, (64, 128, 256, 512)), 1):
+                zip(stage_sizes[:stages], (64, 128, 256, 512)), 1):
             # ACTION on every block; every other one for >=23-block stages
             n_round = 2 if n_blocks >= 23 else 1
             blocks = []
@@ -104,7 +106,7 @@ class ResNetBackbone(nn.Module):
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         taps: Dict[str, torch.Tensor] = {"stem": x}
         for i in range(1, 5):
-            if i > max_stage:
+            if i > min(max_stage, self.stages):
                 return taps
             x = getattr(self, f"layer{i}")(x)
             taps[f"layer{i}"] = x

@@ -11,10 +11,13 @@ sum.
   out = net(x_shift * (g_ste + g_ce + g_me + 3))
 
 Modules take ``[N*T, C, H, W]`` in ``channels_last``; the gates work on the
-free ``[N, T, S, C]`` view.  In training, mode ``'vjp'`` runs the gate block
-as one autograd region on the kernels (``ops/action_vjp.py``); the other
-modes take plain autograd of the formulation above, as the JAX package does
-(``'mega'`` is an eval formulation).  Submodule names are the reference's
+free ``[N, T, S, C]`` view.  At eval, mode ``'mega'`` runs the two-sweep
+kernels and ``'prologue'`` the one-pass prologue kernel (``x_shift``, the
+gate statistics and the ME squeeze), its tail in PyTorch.  In training, mode
+``'vjp'`` runs the gate block as one autograd region on the kernels
+(``ops/action_vjp.py``); the other modes take plain autograd of the
+formulation above, as the JAX package does (``'mega'`` and ``'prologue'``
+are eval formulations).  Submodule names are the reference's
 torch keys (``action_shift``, ``action_p1_conv1``, ..., ``net``), which
 ``export_state_dict`` emits, so converted JAX weights load strictly.
 Weights are cast to the input's dtype at use, as flax does.
@@ -29,12 +32,12 @@ from torch import nn
 from ehgr_tpu_torch.models.layers import Conv2d
 from ehgr_tpu_torch.models.norm import BatchNorm
 from ehgr_tpu_torch.ops.action_vjp import ActionRegion
+from ehgr_tpu_torch.ops.kernels.action_fused import action_prologue
 from ehgr_tpu_torch.ops.kernels.action_mega import (action_apply,
                                                     action_stats,
                                                     ste_stencil)
-from ehgr_tpu_torch.ops.temporal_shift import (learnable_shift,
-                                               temporal_shift,
-                                               tsm_shift_init)
+from ehgr_tpu_torch.ops.kernels.tsm_shift import TsmShift
+from ehgr_tpu_torch.ops.temporal_shift import learnable_shift, tsm_shift_init
 
 _MODES = {None: "none", False: "none", "none": "none", "vjp": "vjp",
           True: "prologue", "prologue": "prologue", "mega": "mega"}
@@ -64,10 +67,11 @@ class ActionConv(nn.Module):
     """ACTION wrapper owning the conv it feeds.
 
     ``fused`` selects the formulation: at eval ``'mega'`` runs the
-    ``action_stats``/``action_apply`` kernels and ``None``/``False``/
-    ``'none'``/``'vjp'`` the same math as PyTorch ops; in training ``'vjp'``
-    runs ``ActionRegion`` (the kernels forward, a hand-structured backward)
-    and every other mode plain autograd.  ``'prologue'`` is not ported yet.
+    ``action_stats``/``action_apply`` kernels, ``True``/``'prologue'`` the
+    ``action_prologue`` kernel and ``None``/``False``/``'none'``/``'vjp'``
+    the same math as PyTorch ops; in training ``'vjp'`` runs
+    ``ActionRegion`` (the kernels forward, a hand-structured backward) and
+    every other mode plain autograd.
     ``bn_frozen`` keeps the ME branch's BN on its running statistics in
     training (partial BN).  ``features=0`` is the gate-only ``ActionGate``."""
 
@@ -78,10 +82,6 @@ class ActionConv(nn.Module):
         if fused not in _MODES:
             raise ValueError(f"unknown ActionConv mode {fused!r}")
         self.mode = _MODES[fused]
-        if self.mode == "prologue":
-            raise NotImplementedError(
-                "fused='prologue' needs action_fused_prologue, not ported "
-                "yet (ROADMAP: TPU kernels to port)")
         c, cr = in_channels, in_channels // 16
         self.features = features
         self.n_segment = n_segment
@@ -118,13 +118,15 @@ class ActionConv(nn.Module):
 
         if use_mega:
             mc, pooled, x3 = action_stats(x4, shift_w, w_p3)
-            g1 = torch.sigmoid(ste_stencil(mc.reshape(n, t, h, w), k_p1))
+        elif self.mode == "prologue" and not self.training:
+            xs, mc, pooled, x3 = action_prologue(x4, shift_w, w_p3)
         else:
             xs = learnable_shift(x4, shift_w)                  # [N,T,S,C]
             pooled = xs.mean(2)                                 # [N,T,C]
             x3 = xs @ w_p3                                      # [N,T,S,Cr]
-            g1 = torch.sigmoid(ste_stencil(
-                xs.mean(-1).reshape(n, t, h, w), k_p1))         # [N,T,H,W]
+            mc = xs.mean(-1)
+        g1 = torch.sigmoid(ste_stencil(mc.reshape(n, t, h, w),
+                                       k_p1))                   # [N,T,H,W]
 
         # CE: channel excitation
         p2 = F.linear(pooled, self.action_p2_squeeze.weight[:, :, 0, 0]
@@ -192,7 +194,8 @@ def ActionGate(in_channels: int, n_segment: int, shift_div: int = 8,
 
 
 class TSMConv(nn.Module):
-    """Plain TSM wrapper: zero-pad channel shift, then the wrapped 1x1
+    """TSM wrapper: the zero-pad channel shift (the ``tsm_shift`` kernel on
+    the ``[N, T, S, C]`` view, forward and backward), then the wrapped 1x1
     conv."""
 
     def __init__(self, in_channels: int, features: int, n_segment: int,
@@ -205,7 +208,8 @@ class TSMConv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         nt, c, h, w = x.shape
-        x5 = x.permute(0, 2, 3, 1).reshape(nt // self.n_segment,
-                                           self.n_segment, h, w, c)
-        x5 = temporal_shift(x5, self.shift_div)
-        return self.net(x5.reshape(nt, h, w, c).permute(0, 3, 1, 2))
+        # the kernel needs the [N,T,S,C] view dense (as in ActionConv)
+        x4 = x.contiguous(memory_format=torch.channels_last) \
+            .permute(0, 2, 3, 1).reshape(nt // self.n_segment,
+                                         self.n_segment, h * w, c)
+        return self.net(_nchw(TsmShift.apply(x4, self.shift_div), nt, h, w))

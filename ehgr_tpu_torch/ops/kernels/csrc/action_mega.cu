@@ -10,12 +10,18 @@
 //   action_apply  (_apply_kernel, pallas_call at :209)
 //       out = (x_shift * (g1[row] + gch[n,t,c])) @ W_net  [N,T,S,F];
 //       the gated sum never reaches device memory.
+// and the TPU kernel of ehgr_tpu/ops/pallas/action_fused.py:
+//   action_prologue  (action_fused_prologue :60, pallas_call at :75)
+//       the action_stats sweep plus one store of x_shift [N,T,S,C]: the
+//       same template with XS = true, where the block that owns mc/pool
+//       also writes the shifted tile it built.
 //
 // What bounds them on the H100: action_stats moves x once (2 B/elem in
 // bf16) and does 2*Cr flops per element of x, at most 256 flops/element
 // (Cr=128), so it is bound by bytes at every ResNet-50 site.  action_apply
 // does 2*F flops per element of x: bytes bound it at the 56^2/28^2 sites,
-// the tensor-core rate at the 7^2 C=2048 F=512 site.
+// the tensor-core rate at the 7^2 C=2048 F=512 site.  action_prologue adds
+// one write of x_shift to action_stats' bytes: bytes bound it everywhere.
 //
 // Design (simple and right first; wgmma/TMA are later work):
 //   * One block owns BM=64 rows of one (n,t) slab and BN output columns and
@@ -65,16 +71,18 @@ __device__ __forceinline__ void st(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-// One tile sweep shared by both kernels.  STATS: A = x_shift, and the block
-// also emits mc (row means) and adds its column sums to pool_acc.
-// Otherwise A = x_shift * (g1[row] + gch[nt, k]).
-template <typename T, int BN, bool STATS>
+// One tile sweep shared by all three kernels.  STATS: A = x_shift, and the
+// block also emits mc (row means) and adds its column sums to pool_acc; XS
+// (with STATS): that block also stores A to xs.  Otherwise
+// A = x_shift * (g1[row] + gch[nt, k]).
+template <typename T, int BN, bool STATS, bool XS>
 __global__ void __launch_bounds__(kThreads)
 sweep_kernel(const T* __restrict__ x, const T* __restrict__ wsh,
              const T* __restrict__ wmat, const T* __restrict__ g1,
              const T* __restrict__ gch, T* __restrict__ out,
              T* __restrict__ mc, float* __restrict__ pool_acc,
-             int tlen, int S, int C, int F, int n_stiles) {
+             T* __restrict__ xs, int tlen, int S, int C, int F,
+             int n_stiles) {
   constexpr int TN = BN / TX;
   __shared__ float As[BM][BK + 1];
   __shared__ float Bs[BK][BN];
@@ -121,6 +129,7 @@ sweep_kernel(const T* __restrict__ x, const T* __restrict__ wsh,
         if (has_prev) v += w0 * ld(p - slab);
         if (has_next) v += w2 * ld(p + slab);
         if (!STATS) v *= ld(g1 + (size_t)nt * S + s) + gc;
+        if (XS && side) st(xs + (size_t)nt * slab + (size_t)s * C + k, v);
       }
       As[i][lk] = v;
     }
@@ -210,13 +219,14 @@ __device__ __forceinline__ uint4 ld16(const bf16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-template <int BN, bool STATS>
+template <int BN, bool STATS, bool XS>
 __global__ void __launch_bounds__(kThreads)
 sweep_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
                 const bf16* __restrict__ wmat, const bf16* __restrict__ g1,
                 const bf16* __restrict__ gch, bf16* __restrict__ out,
                 bf16* __restrict__ mc, float* __restrict__ pool_acc,
-                int tlen, int S, int C, int F, int n_stiles) {
+                bf16* __restrict__ xs, int tlen, int S, int C, int F,
+                int n_stiles) {
   using namespace nvcuda;
   constexpr int LDA = BK + 8;          // bf16; rows stay 16-byte aligned
   constexpr int LDB = BN + 8;
@@ -312,7 +322,11 @@ sweep_tc_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
 #pragma unroll
       for (int i = 0; i < 8; ++i) v[i] *= g1v + w[i];
     }
-    *reinterpret_cast<uint4*>(&sm.t.a[arow][ak]) = pack8(v);
+    const uint4 packed = pack8(v);
+    *reinterpret_cast<uint4*>(&sm.t.a[arow][ak]) = packed;
+    if (XS && side && row_in && k0 + ak < C)
+      *reinterpret_cast<uint4*>(xs + (size_t)nt * slab + (size_t)s_a * C +
+                                k0 + ak) = packed;
     if (side) {
       float r = 0.f;
 #pragma unroll
@@ -398,53 +412,55 @@ bool tc_ok(int c, const void* x, const void* w, const void* gch) {
   return c % 8 == 0 && a % 16 == 0;
 }
 
-template <int BN, bool STATS>
+template <int BN, bool STATS, bool XS = false>
 void launch_tc(const void* x, const void* w, const void* wmat, const void* g1,
-               const void* gch, void* out, void* mc, float* pool_acc, int n,
-               int t, int s, int c, int f, cudaStream_t stream) {
+               const void* gch, void* out, void* mc, float* pool_acc,
+               void* xs, int n, int t, int s, int c, int f,
+               cudaStream_t stream) {
   const int n_stiles = (s + BM - 1) / BM;
   dim3 grid((unsigned)(n * t * n_stiles), (unsigned)((f + BN - 1) / BN));
-  sweep_tc_kernel<BN, STATS><<<grid, kThreads, 0, stream>>>(
+  sweep_tc_kernel<BN, STATS, XS><<<grid, kThreads, 0, stream>>>(
       (const bf16*)x, (const bf16*)w, (const bf16*)wmat, (const bf16*)g1,
-      (const bf16*)gch, (bf16*)out, (bf16*)mc, pool_acc, t, s, c, f,
-      n_stiles);
+      (const bf16*)gch, (bf16*)out, (bf16*)mc, pool_acc, (bf16*)xs, t, s, c,
+      f, n_stiles);
 }
 
-template <typename T, int BN, bool STATS>
+template <typename T, int BN, bool STATS, bool XS = false>
 void launch_sweep(const void* x, const void* w, const void* wmat,
                   const void* g1, const void* gch, void* out, void* mc,
-                  float* pool_acc, int n, int t, int s, int c, int f,
-                  cudaStream_t stream) {
+                  float* pool_acc, void* xs, int n, int t, int s, int c,
+                  int f, cudaStream_t stream) {
   const int n_stiles = (s + BM - 1) / BM;
   dim3 grid((unsigned)(n * t * n_stiles), (unsigned)((f + BN - 1) / BN));
-  sweep_kernel<T, BN, STATS><<<grid, kThreads, 0, stream>>>(
+  sweep_kernel<T, BN, STATS, XS><<<grid, kThreads, 0, stream>>>(
       (const T*)x, (const T*)w, (const T*)wmat, (const T*)g1, (const T*)gch,
-      (T*)out, (T*)mc, pool_acc, t, s, c, f, n_stiles);
+      (T*)out, (T*)mc, pool_acc, (T*)xs, t, s, c, f, n_stiles);
 }
 
-template <typename T>
-int stats_impl(const void* x, const void* w, const void* wp3, void* mc,
-               void* pool, void* x3, float* pool_acc, int n, int t, int s,
-               int c, int cr, cudaStream_t stream) {
+// action_stats (XS = false) and action_prologue (XS = true: x_shift to xs)
+template <typename T, bool XS>
+int stats_impl(const void* x, const void* w, const void* wp3, void* xs,
+               void* mc, void* pool, void* x3, float* pool_acc, int n, int t,
+               int s, int c, int cr, cudaStream_t stream) {
   const size_t npool = (size_t)n * t * c;
   cudaError_t e = cudaMemsetAsync(pool_acc, 0, npool * sizeof(float), stream);
   if (e != cudaSuccess) return (int)e;
-  if (sizeof(T) == 2 && tc_ok(c, x, w, w)) {
+  if (sizeof(T) == 2 && tc_ok(c, x, w, XS ? xs : w)) {
     if (cr <= 16)
-      launch_tc<16, true>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc, n, t,
-                          s, c, cr, stream);
+      launch_tc<16, true, XS>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc,
+                              xs, n, t, s, c, cr, stream);
     else if (cr <= 64)
-      launch_tc<64, true>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc, n, t,
-                          s, c, cr, stream);
+      launch_tc<64, true, XS>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc,
+                              xs, n, t, s, c, cr, stream);
     else
-      launch_tc<128, true>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc, n,
-                           t, s, c, cr, stream);
+      launch_tc<128, true, XS>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc,
+                               xs, n, t, s, c, cr, stream);
   } else if (cr <= 16) {
-    launch_sweep<T, 16, true>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc,
-                              n, t, s, c, cr, stream);
+    launch_sweep<T, 16, true, XS>(x, w, wp3, nullptr, nullptr, x3, mc,
+                                  pool_acc, xs, n, t, s, c, cr, stream);
   } else {
-    launch_sweep<T, 64, true>(x, w, wp3, nullptr, nullptr, x3, mc, pool_acc,
-                              n, t, s, c, cr, stream);
+    launch_sweep<T, 64, true, XS>(x, w, wp3, nullptr, nullptr, x3, mc,
+                                  pool_acc, xs, n, t, s, c, cr, stream);
   }
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
@@ -460,16 +476,31 @@ int apply_impl(const void* x, const void* w, const void* g1, const void* gch,
                cudaStream_t stream) {
   if (sizeof(T) == 2 && tc_ok(c, x, w, gch)) {
     if (f <= 64)
-      launch_tc<64, false>(x, w, wn, g1, gch, out, nullptr, nullptr, n, t, s,
-                           c, f, stream);
+      launch_tc<64, false>(x, w, wn, g1, gch, out, nullptr, nullptr, nullptr,
+                           n, t, s, c, f, stream);
     else
-      launch_tc<128, false>(x, w, wn, g1, gch, out, nullptr, nullptr, n, t, s,
-                            c, f, stream);
+      launch_tc<128, false>(x, w, wn, g1, gch, out, nullptr, nullptr, nullptr,
+                            n, t, s, c, f, stream);
   } else {
-    launch_sweep<T, 64, false>(x, w, wn, g1, gch, out, nullptr, nullptr, n, t,
-                               s, c, f, stream);
+    launch_sweep<T, 64, false>(x, w, wn, g1, gch, out, nullptr, nullptr,
+                               nullptr, n, t, s, c, f, stream);
   }
   return (int)cudaGetLastError();
+}
+
+template <bool XS>
+int stats_entry(int dtype, const void* x, const void* w, const void* wp3,
+                void* xs, void* mc, void* pool, void* x3, void* pool_acc,
+                int n, int t, int s, int c, int cr, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  float* acc = (float*)pool_acc;
+  if (dtype == 0)
+    return stats_impl<float, XS>(x, w, wp3, xs, mc, pool, x3, acc, n, t, s,
+                                 c, cr, st);
+  if (dtype == 1)
+    return stats_impl<__nv_bfloat16, XS>(x, w, wp3, xs, mc, pool, x3, acc, n,
+                                         t, s, c, cr, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -481,15 +512,18 @@ extern "C" int ehgr_action_stats(int dtype, const void* x, const void* w,
                                  const void* wp3, void* mc, void* pool,
                                  void* x3, void* pool_acc, int n, int t,
                                  int s, int c, int cr, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  float* acc = (float*)pool_acc;
-  if (dtype == 0)
-    return stats_impl<float>(x, w, wp3, mc, pool, x3, acc, n, t, s, c, cr,
-                             st);
-  if (dtype == 1)
-    return stats_impl<__nv_bfloat16>(x, w, wp3, mc, pool, x3, acc, n, t, s,
-                                     c, cr, st);
-  return (int)cudaErrorInvalidValue;
+  return stats_entry<false>(dtype, x, w, wp3, nullptr, mc, pool, x3,
+                            pool_acc, n, t, s, c, cr, stream);
+}
+
+// action_stats' outputs plus x_shift [N,T,S,C] in xs.
+extern "C" int ehgr_action_prologue(int dtype, const void* x, const void* w,
+                                    const void* wp3, void* xs, void* mc,
+                                    void* pool, void* x3, void* pool_acc,
+                                    int n, int t, int s, int c, int cr,
+                                    void* stream) {
+  return stats_entry<true>(dtype, x, w, wp3, xs, mc, pool, x3, pool_acc, n,
+                           t, s, c, cr, stream);
 }
 
 extern "C" int ehgr_action_apply(int dtype, const void* x, const void* w,

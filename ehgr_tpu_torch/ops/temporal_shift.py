@@ -7,14 +7,19 @@ from __future__ import annotations
 import torch
 
 
-def temporal_shift(x: torch.Tensor, fold_div: int = 8) -> torch.Tensor:
+def temporal_shift(x: torch.Tensor, fold_div: int = 8,
+                   reverse: bool = False) -> torch.Tensor:
     """TSM shift: the first ``C/fold_div`` channels read t+1, the next
     ``C/fold_div`` read t-1, the rest pass through; zeros at clip edges.
+    ``reverse`` swaps the two directions (the shift's transpose, its VJP).
     ``x``: ``[N, T, ..., C]``."""
     fold = x.shape[-1] // fold_div
+    left, right = (slice(None, -1), slice(1, None))
+    if reverse:
+        left, right = right, left
     out = torch.zeros_like(x)
-    out[:, :-1, ..., :fold] = x[:, 1:, ..., :fold]
-    out[:, 1:, ..., fold:2 * fold] = x[:, :-1, ..., fold:2 * fold]
+    out[:, left, ..., :fold] = x[:, right, ..., :fold]
+    out[:, right, ..., fold:2 * fold] = x[:, left, ..., fold:2 * fold]
     out[..., 2 * fold:] = x[..., 2 * fold:]
     return out
 

@@ -1,7 +1,9 @@
 """Train and eval steps (counterpart of ``ehgr_tpu/train/steps.py``) for the
-stages the port has: ``baseline`` (arch ``tsn``, CE) and ``mtmm`` (arch
+stages the port has: ``baseline`` (arch ``tsn``, CE), ``mtmm`` (arch
 ``tsn_mtmm``, CE + w * MSE of the depth map against the next segment's
-depth resized to 56^2).  ``sd`` and ``mtmm_sd`` arrive with the SD surfaces.
+depth resized to 56^2) and ``sd`` (arch ``tsn_sd``, CE of the final head and
+the three exits, KD of each exit against the final head, feature hints).
+The joint stage ``mtmm_sd`` is a ROADMAP item.
 
 One step: uint8 batch to the model's device, ``normalize_clip`` in f32,
 forward in the model's compute dtype, loss, backward, the policy SGD update
@@ -28,7 +30,7 @@ from ehgr_tpu_torch.train import losses
 from ehgr_tpu_torch.train.ema import ema_update
 from ehgr_tpu_torch.train.optim import SgdPolicies, SgdState
 
-STAGES = ("baseline", "mtmm")
+STAGES = ("baseline", "mtmm", "sd")
 
 
 @dataclass
@@ -63,9 +65,9 @@ def make_loss_fn(model: nn.Module, *, stage: str, loss_cfg,
                  mean: Sequence[float], std: Sequence[float]) -> Callable:
     """``(batch on the device, generator) -> (total, aux, logits)`` of one
     forward of ``model`` in its current mode."""
-    if stage in ("sd", "mtmm_sd"):
+    if stage == "mtmm_sd":
         raise NotImplementedError(
-            f"stage {stage!r} is not ported yet (ROADMAP: SD surfaces)")
+            f"stage {stage!r} is not ported yet (ROADMAP: the joint stage)")
     if stage not in STAGES:
         raise ValueError(f"unknown stage: {stage}")
 
@@ -76,6 +78,13 @@ def make_loss_fn(model: nn.Module, *, stage: str, loss_cfg,
         if stage == "baseline":
             total = losses.cross_entropy(out, labels)
             return total, {"ce": total}, out
+        if stage == "sd":
+            logits, m1, m2, m3, ffea, f1, f2, f3 = out
+            total, aux = losses.sd_total(
+                logits, (m1, m2, m3), labels, ffea, (f1, f2, f3),
+                alpha=loss_cfg.alpha, beta=loss_cfg.beta,
+                temperature=loss_cfg.temperature)
+            return total, aux, logits
         logits, depth_pred = out
         depth_pred = depth_pred.reshape((-1,) + depth_pred.shape[-3:])
         depth_gt = depth_to_target(batch["depth"], loss_cfg.depth_size)

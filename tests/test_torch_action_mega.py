@@ -200,9 +200,17 @@ class TestActionConv:
         assert calls == ["action_stats", "action_apply"]
 
     def test_unported_modes_raise(self):
-        """'prologue' is not ported and an unknown mode is refused; training
-        is ported (tests/test_torch_action_vjp.py)."""
-        with pytest.raises(NotImplementedError, match="prologue"):
-            ActionConv(C, F, T, fused="prologue", device="cpu")
+        """Every JAX mode is ported ('prologue' at eval gives the plain
+        formulation's output, tests/test_torch_action_fused.py holds it
+        against JAX) and an unknown mode is refused; training is ported
+        (tests/test_torch_action_vjp.py)."""
+        x = torch.randn(N * T, C, H, W).contiguous(
+            memory_format=torch.channels_last)
+        mods = {mode: ActionConv(C, F, T, fused=mode, device="cpu").eval()
+                for mode in ("prologue", None)}
+        mods[None].load_state_dict(mods["prologue"].state_dict())
+        with torch.no_grad():
+            torch.testing.assert_close(mods["prologue"](x), mods[None](x),
+                                       **TOL)
         with pytest.raises(ValueError, match="unknown"):
             ActionConv(C, F, T, fused="fast", device="cpu")

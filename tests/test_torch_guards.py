@@ -17,7 +17,8 @@ import pytest
 import torch
 
 import ehgr_tpu_torch
-from ehgr_tpu_torch.ops.kernels import action_mega, build, shift
+from ehgr_tpu_torch.ops.kernels import (action_fused, action_mega, build,
+                                        shift, tsm_shift)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "ehgr_tpu_torch"
@@ -39,7 +40,10 @@ def _run(args, cwd, timeout=120):
 def test_every_module_is_found():
     mods = _modules()
     for want in ("ehgr_tpu_torch.ops.kernels.action_mega",
+                 "ehgr_tpu_torch.ops.kernels.action_fused",
                  "ehgr_tpu_torch.ops.kernels.shift",
+                 "ehgr_tpu_torch.ops.kernels.tsm_shift",
+                 "ehgr_tpu_torch.train.checkpoints",
                  "ehgr_tpu_torch.ops.action_vjp",
                  "ehgr_tpu_torch.models.decoders",
                  "ehgr_tpu_torch.train.losses",
@@ -106,7 +110,8 @@ def _cuda(*shape):
 
 @pytest.mark.parametrize("kernel", ["learnable_shift_fwd",
                                     "learnable_shift_bwd", "action_stats",
-                                    "action_apply"])
+                                    "action_apply", "action_prologue",
+                                    "tsm_shift"])
 def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     """A CUDA operand and a kernel that does not build: the wrapper raises
     the build's error; it neither runs the plain version nor counts."""
@@ -117,8 +122,13 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
             "action_stats": (_cuda(n, t, s, c), _cuda(3, c), _cuda(c, 1)),
             "action_apply": (_cuda(n, t, s, c), _cuda(3, c),
                              _cuda(n, t, s, 1), _cuda(n, t, c),
-                             _cuda(c, f))}[kernel]
-    mod = shift if kernel.startswith("learnable") else action_mega
+                             _cuda(c, f)),
+            "action_prologue": (_cuda(n, t, s, c), _cuda(3, c),
+                                _cuda(c, 1)),
+            "tsm_shift": (_cuda(n, t, s, c), 8)}[kernel]
+    mod = {"learnable_shift_fwd": shift, "learnable_shift_bwd": shift,
+           "action_stats": action_mega, "action_apply": action_mega,
+           "action_prologue": action_fused, "tsm_shift": tsm_shift}[kernel]
 
     def failed_build(name, verbose=False):
         raise RuntimeError(f"nvcc failed on {name}")

@@ -254,12 +254,19 @@ class TestStepGuards:
         with pytest.raises(ValueError, match="not divisible"):
             step(create_train_state(m, opt), make_batches(0, False)[0])
 
-    @pytest.mark.parametrize("stage,err", [("sd", NotImplementedError),
+    @pytest.mark.parametrize("stage,err", [("sd", None),
                                            ("mtmm_sd", NotImplementedError),
                                            ("bogus", ValueError)])
     def test_stages_not_ported_raise(self, stage, err):
+        """The joint stage raises naming its ROADMAP item and an unknown
+        stage is refused; ``sd`` is ported (tests/test_torch_sd.py)."""
         m = self._model()
         opt, _ = build_optimizer(m, OptimConfig())
+        if err is None:
+            assert callable(make_train_step(
+                m, opt, stage=stage, loss_cfg=LossConfig(), ema_decay=EMA,
+                mean=MEAN, std=STD))
+            return
         with pytest.raises(err):
             make_train_step(m, opt, stage=stage, loss_cfg=LossConfig(),
                             ema_decay=EMA, mean=MEAN, std=STD)

@@ -72,7 +72,7 @@ class TestConverter:
 
 
 class TestGoldenLogits:
-    @pytest.mark.parametrize("mode", ["mega", None])
+    @pytest.mark.parametrize("mode", ["mega", None, "prologue"])
     def test_reproduces_gold_and_jax(self, golden, mode):
         _, flat, want = golden
         with torch.no_grad():
@@ -138,17 +138,26 @@ class TestEntryPoints:
     @pytest.mark.parametrize("arch", ["tsn_mtmm", "tsn_sd", "tsn_mtmm_sd",
                                       "tsn_middle2"])
     def test_unported_surfaces_raise(self, arch):
-        """The SD and middle surfaces raise naming their ROADMAP item;
-        tsn_mtmm is ported (training slice) and returns logits and the
-        depth map."""
-        if arch == "tsn_mtmm":
-            m = variant(arch, num_class=CLS, num_segments=T, device="cpu")
-            with torch.no_grad():
-                logits, depth = m(torch.zeros(1, T, HW, HW, 3))
-            assert logits.shape == (1, CLS) and depth.shape == (T, 8, 8, 1)
+        """The joint stage ``tsn_mtmm_sd`` raises naming its ROADMAP item;
+        tsn_mtmm (training slice), tsn_sd and tsn_middle2 (SD slice) are
+        ported and return their outputs (tests/test_torch_sd.py holds them
+        against JAX)."""
+        if arch == "tsn_mtmm_sd":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                variant(arch, num_class=CLS, num_segments=T, device="cpu")
             return
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            variant(arch, num_class=CLS, num_segments=T, device="cpu")
+        m = variant(arch, num_class=CLS, num_segments=T, device="cpu")
+        with torch.no_grad():
+            out = m(torch.zeros(1, T, HW, HW, 3))
+        if arch == "tsn_mtmm":
+            logits, depth = out
+            assert logits.shape == (1, CLS) and depth.shape == (T, 8, 8, 1)
+        elif arch == "tsn_sd":
+            assert [tuple(o.shape) for o in out] == \
+                [(1, CLS)] * 4 + [(T, 2048)] * 4
+        else:
+            assert out.shape == (1, CLS)
+            assert not hasattr(m.base_model, "layer3")
 
     def test_unported_backbone_raises(self):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
