@@ -1216,19 +1216,34 @@ def kernel_table(checks, timings, launches):
     """One entry per kernel.  The ACTION kernels' times are per forward of
     the served batch, the shift kernels' per train step (each site shape
     weighted by its number of sites); ``launches`` sums the counts of the
-    two paths' runs (``launches_by_path``)."""
+    main paths' runs (``launches_by_path``)."""
+    csrc = "ehgr_tpu_torch/ops/kernels/csrc/"
+    pallas = "ehgr_tpu/ops/pallas/"
+    # (name, source, replaces, per, yardstick: "library_ms" where one
+    # PyTorch call computes the same function, else the bare GEMM's
+    # "matmul_ms")
+    kernels = [
+        ("learnable_shift_fwd", "shift.cu", "shift.py:158",
+         "train step, 8 clips", "library_ms"),
+        ("learnable_shift_bwd", "shift.cu", "shift.py:158",
+         "train step, 8 clips", "library_ms"),
+        ("action_stats", "action_mega.cu", "action_mega.py:126",
+         "forward of the served batch, 20 clips", "matmul_ms"),
+        ("action_apply", "action_mega.cu", "action_mega.py:192",
+         "forward of the served batch, 20 clips", "matmul_ms"),
+        ("action_prologue", "action_mega.cu", "action_fused.py:60",
+         "forward of the served batch, 20 clips", "matmul_ms")]
     table = []
-    for name in ("learnable_shift_fwd", "learnable_shift_bwd"):
+    for name, source, replaces, per, yard in kernels:
         t = [r for r in timings if r["kernel"] == name]
         c = [r for r in checks if r["kernel"] == name]
         tot = {k: sum(r[k] * r["sites"] for r in t)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                         "bytes_ms", "ops_ms")}
+               for k in ("ms", "plain_ms", yard, "bound_ms", "bytes_ms",
+                         "ops_ms")}
         by_path = {p: v[name] for p, v in launches.items() if v.get(name)}
-        table.append(dict(
-            name=name, route="cuda",
-            source="ehgr_tpu_torch/ops/kernels/csrc/shift.cu",
-            replaces="ehgr_tpu/ops/pallas/shift.py:158",
+        entry = dict(
+            name=name, route="cuda", source=csrc + source,
+            replaces=pallas + replaces,
             launches=sum(by_path.values()), launches_by_path=by_path,
             max_abs_err=max(r["max_abs_err"] for r in c
                             if r["dtype"] == "bfloat16"),
@@ -1238,64 +1253,15 @@ def kernel_table(checks, timings, launches):
             ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
             bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"]
             else "operations",
-            library_ms=tot["library_ms"], per="train step, 8 clips",
-            sites=[{k: r[k] for k in ("S", "C", "sites", "ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by",
-                                      "roofline_share")}
-                   for r in t]))
-    for name in ("action_stats", "action_apply"):
-        t = [r for r in timings if r["kernel"] == name]
-        c = [r for r in checks if r["kernel"] == name]
-        tot = {k: sum(r[k] * r["sites"] for r in t)
-               for k in ("ms", "plain_ms", "matmul_ms", "bound_ms",
-                         "bytes_ms", "ops_ms")}
-        by_path = {p: v[name] for p, v in launches.items() if v.get(name)}
-        table.append(dict(
-            name=name, route="cuda",
-            source="ehgr_tpu_torch/ops/kernels/csrc/action_mega.cu",
-            replaces=("ehgr_tpu/ops/pallas/action_mega.py:126"
-                      if name == "action_stats"
-                      else "ehgr_tpu/ops/pallas/action_mega.py:192"),
-            launches=sum(by_path.values()), launches_by_path=by_path,
-            max_abs_err=max(r["max_abs_err"] for r in c
-                            if r["dtype"] == "bfloat16"),
-            max_abs_err_fp32=max(r["max_abs_err"] for r in c
-                                 if r["dtype"] == "float32"),
-            max_rel_err=max(r["max_rel_err"] for r in c),
-            ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-            bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"]
-            else "operations",
-            library_ms=None, matmul_ms=tot["matmul_ms"],
-            per="forward of the served batch, 20 clips",
-            sites=[{k: r[k] for k in ("S", "C", "F", "sites", "ms",
-                                      "plain_ms", "matmul_ms", "bound_ms",
-                                      "bound_by", "roofline_share")}
-                   for r in t]))
-    t = [r for r in timings if r["kernel"] == "action_prologue"]
-    c = [r for r in checks if r["kernel"] == "action_prologue"]
-    tot = {k: sum(r[k] * r["sites"] for r in t)
-           for k in ("ms", "plain_ms", "matmul_ms", "bound_ms", "bytes_ms",
-                     "ops_ms")}
-    by_path = {p: v["action_prologue"] for p, v in launches.items()
-               if v.get("action_prologue")}
-    table.append(dict(
-        name="action_prologue", route="cuda",
-        source="ehgr_tpu_torch/ops/kernels/csrc/action_mega.cu",
-        replaces="ehgr_tpu/ops/pallas/action_fused.py:60",
-        launches=sum(by_path.values()), launches_by_path=by_path,
-        max_abs_err=max(r["max_abs_err"] for r in c
-                        if r["dtype"] == "bfloat16"),
-        max_abs_err_fp32=max(r["max_abs_err"] for r in c
-                             if r["dtype"] == "float32"),
-        max_rel_err=max(r["max_rel_err"] for r in c),
-        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
-        bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"]
-        else "operations",
-        library_ms=None, matmul_ms=tot["matmul_ms"],
-        per="forward of the served batch, 20 clips",
-        sites=[{k: r[k] for k in ("S", "C", "sites", "ms", "plain_ms",
-                                  "matmul_ms", "bound_ms", "bound_by",
-                                  "roofline_share")} for r in t]))
+            library_ms=tot.get("library_ms"))
+        if yard == "matmul_ms":
+            entry["matmul_ms"] = tot["matmul_ms"]
+        entry["per"] = per
+        entry["sites"] = [
+            {k: r[k] for k in ("S", "C", "F", "sites", "ms", "plain_ms", yard,
+                               "bound_ms", "bound_by", "roofline_share")
+             if k in r} for r in t]
+        table.append(entry)
     t = [r for r in timings if r["kernel"] == "tsm_shift"]
     c = [r for r in checks if r["kernel"] == "tsm_shift"]
     tot = {k: sum(r[k] * r["sites"] for r in t)
