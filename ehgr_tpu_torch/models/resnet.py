@@ -69,8 +69,8 @@ class Bottleneck(nn.Module):
 class ResNetBackbone(nn.Module):
     """ResNet with per-stage taps: ``forward`` returns ``stem``
     (post-maxpool), ``layer1..4`` and ``pool`` (global average,
-    ``[NT, C]``); stages past ``max_stage`` are not run.  ``stages`` builds
-    only the first ones (a truncated deploy model has no deeper weights)."""
+    ``[NT, C]``).  ``stages < 4`` builds and runs only the first ones (a
+    truncated deploy model has no deeper weights, and no ``pool`` tap)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  temporal: str = "action", n_segment: int = 8,
@@ -100,13 +100,12 @@ class ResNetBackbone(nn.Module):
                 in_planes = p * 4
             setattr(self, f"layer{i}", nn.Sequential(*blocks))
 
-    def forward(self, x: torch.Tensor,
-                max_stage: int = 4) -> Dict[str, torch.Tensor]:
+    def forward(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = torch.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         taps: Dict[str, torch.Tensor] = {"stem": x}
         for i in range(1, 5):
-            if i > min(max_stage, self.stages):
+            if i > self.stages:
                 return taps
             x = getattr(self, f"layer{i}")(x)
             taps[f"layer{i}"] = x

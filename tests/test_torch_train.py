@@ -155,7 +155,10 @@ def _excess(got, want, ref, tol):
 
 
 def check_trajectory(jax_result, port_result, stage, tol=TOL,
-                     momentum_tol=None):
+                     momentum_tol=None, loose=((), None)):
+    """Losses within 1e-4 at each step; every leaf of the final state within
+    ``tol`` (the momentum within ``momentum_tol`` where given), except the
+    leaves whose key starts with one of ``loose[0]``, held to ``loose[1]``."""
     flat0, j_metrics, final, _ = jax_result
     _, state, metrics = port_result
     keys = ("loss", "ce") + (("depth",) if stage == "mtmm" else ())
@@ -191,7 +194,8 @@ def check_trajectory(jax_result, port_result, stage, tol=TOL,
         assert sorted(got[what]) == sorted(w), what
         ref = p0 if "delta" in what else {}
         lim = momentum_tol if what == "momentum" and momentum_tol else tol
-        excess = {k: _excess(got[what][k], w[k], ref.get(k), lim)
+        excess = {k: _excess(got[what][k], w[k], ref.get(k),
+                             loose[1] if k.startswith(loose[0]) else lim)
                   for k in w}
         worst = max(excess, key=excess.get)
         assert excess[worst] <= 1.0, (what, worst, excess[worst])

@@ -175,7 +175,11 @@ class TestBackbone:
                 "stem": (8, 64, 8, 8), "layer1": (8, 256, 8, 8),
                 "layer2": (8, 512, 4, 4), "layer3": (8, 1024, 2, 2),
                 "layer4": (8, 2048, 1, 1), "pool": (8, 2048)}
-            assert sorted(bb(x, max_stage=2)) == ["layer1", "layer2", "stem"]
+        bb2 = get_backbone("resnet50", "action", T, 8, stages=2,
+                           device="cpu").eval()
+        assert not hasattr(bb2, "layer3")
+        with torch.no_grad():
+            assert sorted(bb2(x)) == ["layer1", "layer2", "stem"]
 
     @pytest.mark.parametrize("name,stages,want", [
         ("resnet50", (1, 2, 3, 4), [3, 4, 6, 3]),
