@@ -109,10 +109,11 @@ TSM_RAGGED = [(50, 100), (1000, 24)]
 # same math in another order (kernel sums, the region's matmul transposes)
 SITE_TOL = 1e-4
 # the full fp32 train step against a float64 run of the plain model: each
-# parameter's gradient error (same measure); the kernel model within GRAD_X
-# times the plain fp32 model's own error plus GRAD_TOL (see train_parity);
-# the two fp32 losses within LOSS_TOL
-GRAD_X, GRAD_TOL, LOSS_TOL = 1.5, 1e-3, 1e-5
+# parameter's gradient error (same measure); the kernel model's median and
+# 95th percentile over the leaves within GRAD_X times the plain fp32
+# model's, its worst leaf within WORST_X times the plain model's worst,
+# each plus GRAD_TOL (see train_parity); the two fp32 losses within LOSS_TOL
+GRAD_X, WORST_X, GRAD_TOL, LOSS_TOL = 1.5, 3.0, 1e-3, 1e-5
 # logits of the 'mega' model vs the plain model, same measure (fp32), and
 # how much further from fp32 the bf16 kernel outputs may be than the bf16
 # plain ones (see compare_logits; the middle deploys are held the same way)
@@ -645,18 +646,28 @@ def _parity_grads(torch, seed, mode, dtype, batch, state, arch="tsn_mtmm",
                           for k, p in model.named_parameters()}
 
 
+def _grad_stats(errs):
+    """Median, 95th percentile and worst of per-leaf errors (key ->
+    error), with the worst leaf's key."""
+    e = sorted(errs.values())
+    return dict(median=e[len(e) // 2], p95=e[min(len(e) - 1,
+                                                 int(0.95 * len(e)))],
+                worst=e[-1], worst_key=max(errs, key=errs.get))
+
+
 def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
-                 settings=("bn_batch", "bn_running")):
+                 settings=("bn_batch", "bn_running"), leaves=False):
     """One step's loss and gradients of the full-width model: the fp32
     'vjp' kernel model and the fp32 plain model, each against a float64 run
     of the plain model from the same weights and batch (dropout 0).  The
     plain model's own fp32 error is the floor: at random init the fp32
     gradient of this network is only good to a few percent (a forward
     perturbation of one rounding moves it as much), so the kernel model is
-    held to GRAD_X times that floor, tensor by tensor in median and worst,
-    plus GRAD_TOL.  Two settings: ``bn_batch``, every BN on batch
-    statistics as the train phase runs; ``bn_running``, every BN on running
-    statistics set from the batch."""
+    held to GRAD_X times that floor in median and 95th percentile over the
+    leaves, and to WORST_X times it on the worst leaf, each plus GRAD_TOL.
+    Two settings: ``bn_batch``, every BN on batch statistics as the train
+    phase runs; ``bn_running``, every BN on running statistics set from the
+    batch.  ``leaves``: the result also holds every leaf's error."""
     batch = {k: torch.as_tensor(v).cuda()
              for k, v in make_train_batches(seed, 1)[0].items()}
     out = {}
@@ -668,31 +679,31 @@ def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
         runs = {name: _parity_grads(torch, seed, mode, torch.float32, batch,
                                     state, arch, stage)
                 for name, mode in (("vjp", "vjp"), ("plain", None))}
-        errs = {name: sorted(_rel_err(g[k], ref[k])[1] for k in ref)
+        errs = {name: {k: _rel_err(g[k], ref[k])[1] for k in ref}
                 for name, (_, g) in runs.items()}
         direct = {k: _rel_err(g, runs["plain"][1][k])[1]
                   for k, g in runs["vjp"][1].items()}
-        stat = {name: dict(median=e[len(e) // 2], worst=e[-1])
-                for name, e in errs.items()}
-        tol = {q: GRAD_X * stat["plain"][q] + GRAD_TOL
-               for q in ("median", "worst")}
+        stat = {name: _grad_stats(e) for name, e in errs.items()}
+        tol = {q: x * stat["plain"][q] + GRAD_TOL
+               for q, x in (("median", GRAD_X), ("p95", GRAD_X),
+                            ("worst", WORST_X))}
         loss_rel = abs(runs["vjp"][0] - runs["plain"][0]) / \
             abs(runs["plain"][0])
         r = out[setting] = dict(
-            loss_vjp=runs["vjp"][0], loss_plain=runs["plain"][0],
+            seed=seed, loss_vjp=runs["vjp"][0], loss_plain=runs["plain"][0],
             loss_float64=loss64, loss_rel=loss_rel, loss_tol=LOSS_TOL,
             n_grads=len(ref), vjp_vs_float64=stat["vjp"],
             plain_vs_float64=stat["plain"], tol=tol,
-            vjp_vs_plain=dict(median=sorted(direct.values())[
-                len(direct) // 2], worst=max(direct.values()),
-                worst_key=max(direct, key=direct.get)))
+            vjp_vs_plain=_grad_stats(direct))
         print(f"train_parity {stage} {setting} " + json.dumps(r),
               flush=True)
+        if leaves:
+            r["leaves"] = errs
         if not loss_rel <= LOSS_TOL:
             raise AssertionError(f"{setting}: fp32 train loss vjp "
                                  f"{runs['vjp'][0]} vs plain "
                                  f"{runs['plain'][0]}")
-        for q in ("median", "worst"):
+        for q in tol:
             if not stat["vjp"][q] <= tol[q]:
                 raise AssertionError(
                     f"{setting}: {q} gradient error against float64: vjp "
@@ -1335,10 +1346,44 @@ def kernel_table(checks, timings, launches):
     return table
 
 
+def parity_sweep(torch, seeds, path):
+    """The fp32 train-step gates of ``train_parity`` (MTMM on batch and
+    running BN statistics, SD on batch statistics) for each seed, every
+    leaf's error written to ``path``; a seed that misses a gate is
+    reported and the sweep goes on.  Returns 0 only if every seed
+    passed."""
+    readings, failed = [], []
+    for seed in seeds:
+        for arch, stage, settings in (
+                ("tsn_mtmm", "mtmm", ("bn_batch", "bn_running")),
+                ("tsn_sd", "sd", ("bn_batch",))):
+            try:
+                res = train_parity(torch, seed, arch, stage, settings,
+                                   leaves=True)
+            except AssertionError as e:
+                failed.append(f"seed {seed} {stage}: {e}")
+                print(f"parity_sweep MISS {failed[-1]}", flush=True)
+                continue
+            readings += [dict(stage=stage, setting=k, **v)
+                         for k, v in res.items()]
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(dict(readings=readings, failed=failed), f)
+    print("parity_sweep " + json.dumps(dict(seeds=seeds, failed=failed,
+                                            out=path)), flush=True)
+    return 1 if failed else 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the weights, the videos and the inputs")
+    p.add_argument("--parity-seeds", default=None, metavar="K,K,...",
+                   help="run only the fp32 train-step gates against "
+                   "float64 (MTMM in both BN settings, SD) for these seeds "
+                   "and write every leaf's error to --out")
+    p.add_argument("--out", default="chiprun_out/parity_leaves.json",
+                   help="where --parity-seeds writes its readings")
     args = p.parse_args(argv)
 
     import torch
@@ -1365,6 +1410,10 @@ def main(argv=None) -> int:
         load(name)
     print(f"build {', '.join(libs)}: {time.perf_counter() - t0:.1f} s",
           flush=True)
+
+    if args.parity_seeds is not None:
+        return parity_sweep(torch, [int(k) for k in
+                                    args.parity_seeds.split(",")], args.out)
 
     n = VIDEOS * CLIPS                         # clips per forward
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
