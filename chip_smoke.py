@@ -7,9 +7,10 @@ Phases; any miss raises and the run exits nonzero:
    per source, all started together;
 2. hold ``action_stats`` / ``action_apply`` against their plain versions at
    the eight ResNet-50 ACTION site shapes of the main path plus two ragged
-   shapes, in fp32 (TF32 off) and in bf16 (plain version in f32 from the
-   same bf16 inputs); and measure how far the TPU kernel's bf16 running sum
-   of ``pool`` would land from the f32 sum kept here;
+   shapes and two more routes of ``action_apply`` (printed per shape), in
+   fp32 (TF32 off) and in bf16 (plain version in f32 from the same bf16
+   inputs); and measure how far the TPU kernel's bf16 running sum of
+   ``pool`` would land from the f32 sum kept here;
 3. hold ``learnable_shift_fwd`` / ``learnable_shift_bwd`` (y, dx, dw)
    against autograd of the plain shift at the site shapes at 8 clips and
    the two ragged shapes, fp32 and bf16;
@@ -21,7 +22,9 @@ Phases; any miss raises and the run exits nonzero:
    ResNet-50 (T=8, 224^2, 83 classes, bf16, ``action_fused='mega'``,
    weights drawn from a seeded ``torch.Generator``) for a few request
    batches of uint8 videos, with the kernels' launch counters zeroed just
-   before and read just after; then the logits against the plain path
+   before and read just after (``action_apply`` on its strip kernel,
+   ``csrc/action_apply.cu``, at all 16 sites); then the logits against the
+   plain path
    (``action_fused=None``) in fp32 and in bf16; one scorer call traced with
    ``torch.profiler`` (device time by kernel, idle share);
 6. train, Stage 1: ``make_train_step(stage='mtmm')`` on the full-width
@@ -54,7 +57,7 @@ Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
 without CUDA it exits nonzero before doing anything.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--parity-seeds 0,1,2,3,4,5]
 """
 
 from __future__ import annotations
@@ -82,6 +85,10 @@ SITES = [(3136, 64, 64, 1), (3136, 256, 64, 2), (3136, 256, 128, 1),
 # S off every tile size with Cr=8 and F under one tile; and C off the
 # 8-channel rows the tensor-core sweep needs (bf16 then takes the FMA sweep)
 RAGGED = [(1000, 128, 32), (50, 100, 24)]
+# the routes of action_apply beyond the sites: S = 201 leaves the last
+# 128-row strip ragged at F = 512 (two column blocks) on the strip kernel;
+# C = 72 (C % 64 != 0) takes the tensor-core sweep
+ROUTE_SHAPES = [(201, 128, 512), (50, 72, 40)]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 / fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -186,10 +193,12 @@ def check_kernels(torch, mega, n, gen):
     """Each kernel against its plain version at every site shape, fp32 and
     bf16; returns per-(shape, dtype) errors and raises on a miss."""
     results, pool_acc = [], []
-    shapes = [s[:3] for s in SITES] + RAGGED
+    shapes = [s[:3] for s in SITES] + RAGGED + ROUTE_SHAPES
     for s, c, f in shapes:
         for dname in ("float32", "bfloat16"):
             d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen)
+            route = mega._apply_route(d["x4"].dtype, c, f, all(
+                d[k].data_ptr() % 16 == 0 for k in ("x4", "w", "gch", "wn")))
             ref = {k: v.float() for k, v in d.items()}   # same values, f32
             got = dict(zip(("mc", "pool", "x3"),
                            mega.action_stats(d["x4"], d["w"], d["wp3"])))
@@ -207,16 +216,19 @@ def check_kernels(torch, mega, n, gen):
                 results.append(dict(kernel=kernel, output=name, S=s, C=c,
                                     F=f, dtype=dname, max_abs_err=err,
                                     max_rel_err=rel, tol=TOL[dname], ok=ok))
+                if name == "out":
+                    results[-1]["route"] = route
                 print(f"check {kernel:12s} {name:4s} S={s:4d} C={c:4d} "
                       f"F={f:3d} {dname:8s} max_abs_err={err:.3e} "
                       f"rel={rel:.3e} tol={TOL[dname]:.0e} "
-                      f"{'ok' if ok else 'MISS'}", flush=True)
+                      f"{'ok' if ok else 'MISS'}"
+                      f"{' ' + route if name == 'out' else ''}", flush=True)
                 if not ok:
                     raise AssertionError(
                         f"{kernel}.{name} disagrees with its plain version "
                         f"at S={s} C={c} F={f} {dname}: rel {rel:.3e} > "
                         f"{TOL[dname]}")
-            if dname == "bfloat16" and (s, c, f) not in RAGGED:
+            if dname == "bfloat16" and (s, c, f) in [x[:3] for x in SITES]:
                 pool_acc.append(pool_accumulation_delta(torch, d))
             del d, ref, got, want
     print("pool_accumulation " + json.dumps(pool_acc), flush=True)
@@ -336,9 +348,11 @@ def build_models(torch, seed, frames):
 
 
 def _counters():
-    """Kernel name -> (wrapper, attribute) of its launch counter;
-    ``tsm_shift`` counts both directions, ``tsm_shift_reverse`` the reverse
-    launches among them."""
+    """Kernel name -> (wrapper or dict, attribute or key) of its launch
+    counter; ``tsm_shift`` counts both directions, ``tsm_shift_reverse`` the
+    reverse launches among them; ``action_apply`` counts every route,
+    ``action_apply_strip`` its main path's route (``csrc/action_apply.cu``)
+    among them."""
     from ehgr_tpu_torch.ops.kernels import action_fused as fused
     from ehgr_tpu_torch.ops.kernels import action_mega as mega
     from ehgr_tpu_torch.ops.kernels import shift as shk
@@ -348,6 +362,8 @@ def _counters():
             "learnable_shift_bwd": (shk.learnable_shift_bwd, "launches"),
             "action_stats": (mega.action_stats, "launches"),
             "action_apply": (mega.action_apply, "launches"),
+            "action_apply_strip": (mega.action_apply.route_launches,
+                                   "strip"),
             "action_prologue": (fused.action_prologue, "launches"),
             "tsm_shift": (tk.tsm_shift, "launches"),
             "tsm_shift_reverse": (tk.tsm_shift, "reverse_launches")}
@@ -355,11 +371,15 @@ def _counters():
 
 def reset_counters():
     for fn, attr in _counters().values():
-        setattr(fn, attr, 0)
+        if isinstance(fn, dict):
+            fn[attr] = 0
+        else:
+            setattr(fn, attr, 0)
 
 
 def _launches():
-    return {k: getattr(fn, attr) for k, (fn, attr) in _counters().items()}
+    return {k: fn[attr] if isinstance(fn, dict) else getattr(fn, attr)
+            for k, (fn, attr) in _counters().items()}
 
 
 def serve(torch, model, batches, want, name="serve", heads=1):
@@ -559,7 +579,7 @@ def train(torch, seed):
     model = _train_model(torch, seed, "vjp", torch.bfloat16, 0.5)
     return run_steps(torch, "train", model, "mtmm", seed, {
         "learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
-        "action_stats": 16, "action_apply": 16})
+        "action_stats": 16, "action_apply": 16, "action_apply_strip": 16})
 
 
 def _frozen_bn_state(torch, seed, batch, arch="tsn_mtmm"):
@@ -949,7 +969,8 @@ def sd_deploy(torch, seed, trained, batches):
                                    {"action_prologue": 16},
                                    "sd_serve_prologue", heads=4),
            "serve_mega": serve(torch, models["mega"], batches,
-                               {"action_stats": 16, "action_apply": 16},
+                               {"action_stats": 16, "action_apply": 16,
+                                "action_apply_strip": 16},
                                "sd_serve_mega", heads=4)}
 
     with torch.inference_mode():
@@ -1075,10 +1096,18 @@ def _bound_ms(nbytes, flops, dname):
     return nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dname] * 1e3
 
 
+def _strip_grid(rows, f):
+    """The launch of ``csrc/action_apply.cu`` at ``rows`` x F: (row strips,
+    column blocks, BN) as its host code picks them."""
+    bn = 64 if f <= 64 else 128 if f <= 128 else 256
+    return -(-rows // 128), -(-f // bn), bn
+
+
 def time_kernels(torch, mega, n, gen):
     """Per site shape, bf16 (the main path's dtype): kernel, plain version,
     bare GEMM; bound from the bytes each function must move and the FLOPs
-    it does."""
+    it does; for ``action_apply`` the route and, on the strip kernel, its
+    grid."""
     rows_out = []
     for s, c, f, count in SITES:
         d = _inputs(torch, n, s, c, f, torch.bfloat16, gen)
@@ -1109,11 +1138,20 @@ def time_kernels(torch, mega, n, gen):
                      plain_ms=_time_ms(torch, lambda: fp(*args)),
                      matmul_ms=_time_ms(torch, lambda: xb @ gemm_w))
             r["roofline_share"] = bound / r["ms"]
+            extra = ""
+            if kernel == "action_apply":
+                r["route"] = mega._apply_route(torch.bfloat16, c, f, True)
+                strips, cols, bn = _strip_grid(rows, f)
+                r["grid"] = dict(strips=strips, column_blocks=cols, BN=bn,
+                                 blocks=strips * cols)
+                extra = (f" route={r['route']} grid={strips}x{cols} "
+                         f"BN={bn}")
             rows_out.append(r)
             print(f"time {kernel:12s} S={s:4d} C={c:4d} F={f:3d} "
                   f"ms={r['ms']:.4f} bound={bound:.4f} ({by}) "
-                  f"plain={r['plain_ms']:.4f} matmul={r['matmul_ms']:.4f}",
-                  flush=True)
+                  f"share={r['roofline_share']:.3f} "
+                  f"plain={r['plain_ms']:.4f} matmul={r['matmul_ms']:.4f}"
+                  f"{extra}", flush=True)
         del d, xb
     return rows_out
 
@@ -1282,7 +1320,7 @@ def kernel_table(checks, timings, launches):
          "train step, 8 clips", "library_ms"),
         ("action_stats", "action_mega.cu", "action_mega.py:126",
          "forward of the served batch, 20 clips", "matmul_ms"),
-        ("action_apply", "action_mega.cu", "action_mega.py:192",
+        ("action_apply", "action_apply.cu", "action_mega.py:192",
          "forward of the served batch, 20 clips", "matmul_ms"),
         ("action_prologue", "action_mega.cu", "action_fused.py:60",
          "forward of the served batch, 20 clips", "matmul_ms")]
@@ -1310,9 +1348,17 @@ def kernel_table(checks, timings, launches):
         if yard == "matmul_ms":
             entry["matmul_ms"] = tot["matmul_ms"]
         entry["per"] = per
+        if name == "action_apply":
+            entry["redesigned"] = ("PR 5: one gated A tile per row strip, a "
+                                   "cp.async ring; PR 3's kernel took 6.930 "
+                                   "ms a forward (PERF.md, PR 3 run 14)")
+            entry["launches_strip_by_path"] = {
+                p: v["action_apply_strip"] for p, v in launches.items()
+                if v.get("action_apply_strip")}
         entry["sites"] = [
             {k: r[k] for k in ("S", "C", "F", "sites", "ms", "plain_ms", yard,
-                               "bound_ms", "bound_by", "roofline_share")
+                               "bound_ms", "bound_by", "roofline_share",
+                               "route", "grid")
              if k in r} for r in t]
         table.append(entry)
     t = [r for r in timings if r["kernel"] == "tsm_shift"]
@@ -1403,7 +1449,7 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    libs = ("action_mega", "shift", "tsm_shift")
+    libs = ("action_mega", "action_apply", "shift", "tsm_shift")
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         list(pool.map(lambda name: build(name, verbose=True), libs))
     for name in libs:                              # -Xptxas -v printed
@@ -1435,7 +1481,8 @@ def main(argv=None) -> int:
     # PR 1's path: the ACTION scorer ('mega')
     model, plain = build_models(torch, args.seed, batches[0][0])
     served = phase("serve", serve, torch, model, batches,
-                   {"action_stats": 16, "action_apply": 16})
+                   {"action_stats": 16, "action_apply": 16,
+                    "action_apply_strip": 16})
     logits = compare_logits(torch, model, plain, batches[0][0])
     del plain
     prof = profile_forward(torch, model, batches[0][0])
@@ -1470,7 +1517,7 @@ def main(argv=None) -> int:
                           sd_model, "sd", args.seed,
                           {"learnable_shift_fwd": 16,
                            "learnable_shift_bwd": 16, "action_stats": 16,
-                           "action_apply": 16})
+                           "action_apply": 16, "action_apply_strip": 16})
     sd_state = {k: v.detach().clone()
                 for k, v in sd_model.state_dict().items()}
     del sd_model

@@ -1,6 +1,6 @@
 """ACTION two-sweep kernels: wrappers of the CUDA kernels in
-``csrc/action_mega.cu`` beside their plain PyTorch versions (counterpart of
-``ehgr_tpu/ops/pallas/action_mega.py``).
+``csrc/action_mega.cu`` and ``csrc/action_apply.cu`` beside their plain
+PyTorch versions (counterpart of ``ehgr_tpu/ops/pallas/action_mega.py``).
 
   sweep 1  ``action_stats``  — read ``x`` once, recompute the 3-tap shift and
       emit ``mc [N,T,S,1]`` (channel mean), ``pool [N,T,C]`` (spatial mean)
@@ -80,13 +80,27 @@ def action_apply_plain(x4: torch.Tensor, w_shift: torch.Tensor,
     return (gated @ w_net.float()).to(x4.dtype)
 
 
+def _apply_route(dtype: torch.dtype, c: int, f: int, aligned: bool) -> str:
+    """The kernel that computes ``action_apply``, a pure function of the
+    operands: ``'strip'`` (``csrc/action_apply.cu``: bf16 with C % 64 == 0,
+    F % 8 == 0 and every vector-read operand 16-byte aligned, which every
+    ResNet-50 site meets), ``'tc_sweep'`` (the tensor-core sweep of
+    ``csrc/action_mega.cu``: the other bf16 with C % 8 == 0 and aligned
+    operands) or ``'fma_sweep'`` (fp32, and any other bf16)."""
+    if dtype != torch.bfloat16 or c % 8 or not aligned:
+        return "fma_sweep"
+    return "strip" if c % 64 == 0 and f % 8 == 0 else "tc_sweep"
+
+
 def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
                  gch: torch.Tensor, w_net: torch.Tensor) -> torch.Tensor:
     """``x4 [N,T,S,C], w_shift [3,C], g1 [N,T,S,1], gch [N,T,C],
     w_net [C,F]`` -> ``(x_shift * (g1 + gch)) @ w_net  [N,T,S,F]``.
 
     ``gch`` already holds the residual offset: the ACTION gated sum is
-    ``x_shift*(g1+g2+g3+3)``, so callers pass ``gch = g2 + g3 + 3``."""
+    ``x_shift*(g1+g2+g3+3)``, so callers pass ``gch = g2 + g3 + 3``.
+    ``action_apply.route_launches`` counts the launches of each route of
+    ``_apply_route``."""
     n, t, s, c = x4.shape
     if w_shift.shape != (3, c) or g1.shape != (n, t, s, 1) or \
             gch.shape != (n, t, c) or w_net.dim() != 2 or \
@@ -98,17 +112,27 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
                    w_net=w_net)
     if x4.device.type == "cpu":
         return action_apply_plain(x4, w_shift, g1, gch, w_net)
-    load("action_mega")                # a failed build raises here
     f = w_net.shape[1]
+    route = _apply_route(x4.dtype, c, f, all(
+        v.data_ptr() % 16 == 0 for v in (x4, w_shift, gch, w_net)))
     out = x4.new_empty((n, t, s, f))
-    launch("action_mega", "ehgr_action_apply", x4, x4.data_ptr(),
-           w_shift.data_ptr(), g1.data_ptr(), gch.data_ptr(),
-           w_net.data_ptr(), out.data_ptr(), n, t, s, c, f)
+    ptrs = (x4.data_ptr(), w_shift.data_ptr(), g1.data_ptr(), gch.data_ptr(),
+            w_net.data_ptr(), out.data_ptr())
+    if route == "strip":                 # a failed build raises in launch
+        launch("action_apply", "ehgr_action_apply_strip", x4, STRIP_WGMMA,
+               *ptrs, n, t, s, c, f)
+    else:
+        launch("action_mega", "ehgr_action_apply", x4,
+               int(route == "tc_sweep"), *ptrs, n, t, s, c, f)
     action_apply.launches += 1
+    action_apply.route_launches[route] += 1
     return out
 
 
+# the product of the 'strip' route: 1 wgmma, 0 mma.sync
+STRIP_WGMMA = 0
 action_apply.launches = 0
+action_apply.route_launches = dict(strip=0, tc_sweep=0, fma_sweep=0)
 
 
 # ---------------------------------------------------------------------------

@@ -34,13 +34,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # dtype, x, w, wp3, mc, pool, x3, pool_acc, n, t, s, c, cr, stream
         "ehgr_action_stats": [_I, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
-        # dtype, x, w, g1, gch, wn, out, n, t, s, c, f, stream
-        "ehgr_action_apply": [_I, _P, _P, _P, _P, _P, _P,
+        # dtype, tc, x, w, g1, gch, wn, out, n, t, s, c, f, stream
+        "ehgr_action_apply": [_I, _I, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
         # dtype, x, w, wp3, xs, mc, pool, x3, pool_acc, n, t, s, c, cr,
         # stream
         "ehgr_action_prologue": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _P],
+    },
+    "action_apply": {
+        # dtype (bf16 only), wgmma, x, w, g1, gch, wn, out, n, t, s, c, f,
+        # stream
+        "ehgr_action_apply_strip": [_I, _I, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _P],
     },
     "tsm_shift": {
         # dtype, x, y, n, t, s, c, fold, reverse, vec, bx, by, gx, gy, stream

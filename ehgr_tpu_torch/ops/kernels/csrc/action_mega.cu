@@ -9,7 +9,9 @@
 //       recomputed on the fly and never written.
 //   action_apply  (_apply_kernel, pallas_call at :209)
 //       out = (x_shift * (g1[row] + gch[n,t,c])) @ W_net  [N,T,S,F];
-//       the gated sum never reaches device memory.
+//       the gated sum never reaches device memory.  Only off the main
+//       path: fp32, and bf16 shapes that csrc/action_apply.cu does not take
+//       (C % 64 != 0, F % 8 != 0 or a misaligned operand).
 // and the TPU kernel of ehgr_tpu/ops/pallas/action_fused.py:
 //   action_prologue  (action_fused_prologue :60, pallas_call at :75)
 //       the action_stats sweep plus one store of x_shift [N,T,S,C]: the
@@ -471,16 +473,14 @@ int stats_impl(const void* x, const void* w, const void* wp3, void* xs,
 }
 
 template <typename T>
-int apply_impl(const void* x, const void* w, const void* g1, const void* gch,
-               const void* wn, void* out, int n, int t, int s, int c, int f,
-               cudaStream_t stream) {
-  if (sizeof(T) == 2 && tc_ok(c, x, w, gch)) {
-    if (f <= 64)
-      launch_tc<64, false>(x, w, wn, g1, gch, out, nullptr, nullptr, nullptr,
-                           n, t, s, c, f, stream);
-    else
-      launch_tc<128, false>(x, w, wn, g1, gch, out, nullptr, nullptr, nullptr,
-                            n, t, s, c, f, stream);
+int apply_impl(int tc, const void* x, const void* w, const void* g1,
+               const void* gch, const void* wn, void* out, int n, int t,
+               int s, int c, int f, cudaStream_t stream) {
+  if (tc) {
+    if (sizeof(T) != 2 || !tc_ok(c, x, w, gch))
+      return (int)cudaErrorInvalidValue;
+    launch_tc<64, false>(x, w, wn, g1, gch, out, nullptr, nullptr, nullptr,
+                         n, t, s, c, f, stream);
   } else {
     launch_sweep<T, 64, false>(x, w, wn, g1, gch, out, nullptr, nullptr,
                                nullptr, n, t, s, c, f, stream);
@@ -526,15 +526,19 @@ extern "C" int ehgr_action_prologue(int dtype, const void* x, const void* w,
                            t, s, c, cr, stream);
 }
 
-extern "C" int ehgr_action_apply(int dtype, const void* x, const void* w,
-                                 const void* g1, const void* gch,
-                                 const void* wn, void* out, int n, int t,
-                                 int s, int c, int f, void* stream) {
+// action_apply off its main path (the main path is csrc/action_apply.cu):
+// tc = 1 the tensor-core sweep (bf16, C % 8 == 0, x, w, gch 16-byte
+// aligned, else cudaErrorInvalidValue), tc = 0 the FMA sweep.
+extern "C" int ehgr_action_apply(int dtype, int tc, const void* x,
+                                 const void* w, const void* g1,
+                                 const void* gch, const void* wn, void* out,
+                                 int n, int t, int s, int c, int f,
+                                 void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return apply_impl<float>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
+    return apply_impl<float>(tc, x, w, g1, gch, wn, out, n, t, s, c, f, st);
   if (dtype == 1)
-    return apply_impl<__nv_bfloat16>(x, w, g1, gch, wn, out, n, t, s, c, f,
-                                     st);
+    return apply_impl<__nv_bfloat16>(tc, x, w, g1, gch, wn, out, n, t, s, c,
+                                     f, st);
   return (int)cudaErrorInvalidValue;
 }

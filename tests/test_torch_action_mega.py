@@ -61,7 +61,12 @@ class TestPlainVersusPallas:
             np.testing.assert_allclose(_np(g), np.asarray(w), **TOL)
 
     @pytest.mark.parametrize("n,t,s,c,f", [(N, T, H * W, C, F),
-                                           (1, 4, 1000, 128, 8)])
+                                           (1, 4, 1000, 128, 8)] + [
+        # the strip route's edges: C one or two 64-channel chunks, F under
+        # one 64-column block, one full 256 block and two; S = 49 (a 7^2
+        # site) and S = 130 (frames straddle the 128-row strips)
+        (1, 4, s, c, f) for s in (49, 130) for c in (64, 128)
+        for f in (32, 256, 512)])
     def test_apply(self, rng, n, t, s, c, f):
         args = _apply_inputs(rng, n, t, s, c, f)
         want = jmega.action_apply(*map(jnp.asarray, args), interpret=True)
@@ -124,6 +129,66 @@ class TestWrappers:
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith("libaction_mega-")
         assert "ehgr_action_stats" in build.SIGNATURES["action_mega"]
+
+
+# (S, C, F) of the 16 ACTION sites of ResNet-50 at 224^2
+RESNET50_SITES = [(3136, 64, 64), (3136, 256, 64), (3136, 256, 128),
+                  (784, 512, 128), (784, 512, 256), (196, 1024, 256),
+                  (196, 1024, 512), (49, 2048, 512)]
+
+
+class _OnCuda(torch.Tensor):
+    """A CPU tensor that reports ``cuda:0``, so a wrapper takes its CUDA
+    branch on a machine without a card."""
+
+    @property
+    def device(self):
+        return torch.device("cuda", 0)
+
+
+class TestApplyRoute:
+    @pytest.mark.parametrize("s,c,f", RESNET50_SITES)
+    def test_every_site_takes_the_strip_kernel(self, s, c, f):
+        assert mega._apply_route(torch.bfloat16, c, f, True) == "strip"
+
+    @pytest.mark.parametrize("dtype,c,f,aligned,want", [
+        (torch.float32, 256, 64, True, "fma_sweep"),
+        (torch.bfloat16, 96, 64, True, "tc_sweep"),     # C % 64 != 0
+        (torch.bfloat16, 256, 60, True, "tc_sweep"),    # F % 8 != 0
+        (torch.bfloat16, 256, 64, False, "fma_sweep"),  # misaligned
+        (torch.bfloat16, 100, 24, True, "fma_sweep")])  # C % 8 != 0
+    def test_other_operands_keep_the_sweeps(self, dtype, c, f, aligned,
+                                            want):
+        assert mega._apply_route(dtype, c, f, aligned) == want
+
+    @pytest.mark.parametrize("dtype,offset,want", [
+        (torch.bfloat16, 0, "strip"), (torch.bfloat16, 1, "fma_sweep"),
+        (torch.float32, 0, "fma_sweep")])
+    def test_wrapper_launches_the_route_and_counts_it(self, monkeypatch,
+                                                      dtype, offset, want):
+        """On a CUDA tensor the wrapper launches the entry point of its
+        route (a misaligned ``x4`` view leaves the strip kernel) and counts
+        the launch under that route."""
+        calls = []
+        monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+        monkeypatch.setattr(mega, "launch",
+                            lambda lib, fn, x4, *a: calls.append((lib, fn)))
+        n, t, s, c, f = 1, 2, 3, 64, 16
+
+        def cuda(*shape, extra=0):
+            base = torch.randn(extra + int(np.prod(shape))).to(dtype)
+            return torch.Tensor._make_subclass(
+                _OnCuda, base[extra:].view(shape))
+        x4 = cuda(n, t, s, c, extra=offset)
+        before = dict(mega.action_apply.route_launches)
+        mega.action_apply(x4, cuda(3, c), cuda(n, t, s, 1), cuda(n, t, c),
+                          cuda(c, f))
+        lib = "action_apply" if want == "strip" else "action_mega"
+        assert calls == [(lib, "ehgr_action_apply_strip" if want == "strip"
+                          else "ehgr_action_apply")]
+        after = mega.action_apply.route_launches
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == want) for k in after}
 
 
 def _randomized(variables, rng):

@@ -110,12 +110,18 @@ def _cuda(*shape):
 
 @pytest.mark.parametrize("kernel", ["learnable_shift_fwd",
                                     "learnable_shift_bwd", "action_stats",
-                                    "action_apply", "action_prologue",
-                                    "tsm_shift"])
+                                    "action_apply", "action_apply_strip",
+                                    "action_prologue", "tsm_shift"])
 def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     """A CUDA operand and a kernel that does not build: the wrapper raises
-    the build's error; it neither runs the plain version nor counts."""
+    the build's error; it neither runs the plain version nor counts.
+    ``action_apply_strip``: ``action_apply`` on bf16 operands of its main
+    path's route (``csrc/action_apply.cu``)."""
     n, t, s, c, f = 1, 2, 3, 16, 8
+
+    def strip(*shape):
+        return torch.Tensor._make_subclass(
+            _OnCuda, torch.randn(*shape).to(torch.bfloat16))
     args = {"learnable_shift_fwd": (_cuda(n, t, s, c), _cuda(3, c)),
             "learnable_shift_bwd": (_cuda(n, t, s, c), _cuda(n, t, s, c),
                                     _cuda(3, c)),
@@ -123,12 +129,17 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
             "action_apply": (_cuda(n, t, s, c), _cuda(3, c),
                              _cuda(n, t, s, 1), _cuda(n, t, c),
                              _cuda(c, f)),
+            "action_apply_strip": (strip(n, t, s, 64), strip(3, 64),
+                                   strip(n, t, s, 1), strip(n, t, 64),
+                                   strip(64, f)),
             "action_prologue": (_cuda(n, t, s, c), _cuda(3, c),
                                 _cuda(c, 1)),
             "tsm_shift": (_cuda(n, t, s, c), 8)}[kernel]
     mod = {"learnable_shift_fwd": shift, "learnable_shift_bwd": shift,
            "action_stats": action_mega, "action_apply": action_mega,
+           "action_apply_strip": action_mega,
            "action_prologue": action_fused, "tsm_shift": tsm_shift}[kernel]
+    kernel = kernel.replace("_strip", "")
 
     def failed_build(name, verbose=False):
         raise RuntimeError(f"nvcc failed on {name}")
