@@ -1098,9 +1098,10 @@ def _bound_ms(nbytes, flops, dname):
 
 def _strip_grid(rows, f):
     """The launch of ``csrc/action_apply.cu`` at ``rows`` x F: (row strips,
-    column blocks, BN) as its host code picks them."""
+    column blocks, BN, BM) as its host code picks them."""
     bn = 64 if f <= 64 else 128 if f <= 128 else 256
-    return -(-rows // 128), -(-f // bn), bn
+    bm = 64 if bn == 64 else 128
+    return -(-rows // bm), -(-f // bn), bn, bm
 
 
 def time_kernels(torch, mega, n, gen):
@@ -1141,11 +1142,11 @@ def time_kernels(torch, mega, n, gen):
             extra = ""
             if kernel == "action_apply":
                 r["route"] = mega._apply_route(torch.bfloat16, c, f, True)
-                strips, cols, bn = _strip_grid(rows, f)
-                r["grid"] = dict(strips=strips, column_blocks=cols, BN=bn,
-                                 blocks=strips * cols)
+                strips, cols, bn, bm = _strip_grid(rows, f)
+                r["grid"] = dict(strips=strips, column_blocks=cols, BM=bm,
+                                 BN=bn, blocks=strips * cols)
                 extra = (f" route={r['route']} grid={strips}x{cols} "
-                         f"BN={bn}")
+                         f"BM={bm} BN={bn}")
             rows_out.append(r)
             print(f"time {kernel:12s} S={s:4d} C={c:4d} F={f:3d} "
                   f"ms={r['ms']:.4f} bound={bound:.4f} ({by}) "

@@ -119,8 +119,8 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
     ptrs = (x4.data_ptr(), w_shift.data_ptr(), g1.data_ptr(), gch.data_ptr(),
             w_net.data_ptr(), out.data_ptr())
     if route == "strip":                 # a failed build raises in launch
-        launch("action_apply", "ehgr_action_apply_strip", x4, STRIP_WGMMA,
-               *ptrs, n, t, s, c, f)
+        launch("action_apply", "ehgr_action_apply_strip", x4, *ptrs, n, t,
+               s, c, f)
     else:
         launch("action_mega", "ehgr_action_apply", x4,
                int(route == "tc_sweep"), *ptrs, n, t, s, c, f)
@@ -129,8 +129,6 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
     return out
 
 
-# the product of the 'strip' route: 1 wgmma, 0 mma.sync
-STRIP_WGMMA = 0
 action_apply.launches = 0
 action_apply.route_launches = dict(strip=0, tc_sweep=0, fma_sweep=0)
 

@@ -43,9 +43,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                  _I, _I, _I, _I, _I, _P],
     },
     "action_apply": {
-        # dtype (bf16 only), wgmma, x, w, g1, gch, wn, out, n, t, s, c, f,
-        # stream
-        "ehgr_action_apply_strip": [_I, _I, _P, _P, _P, _P, _P, _P,
+        # dtype (bf16 only), x, w, g1, gch, wn, out, n, t, s, c, f, stream
+        "ehgr_action_apply_strip": [_I, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P],
     },
     "tsm_shift": {

@@ -18,20 +18,23 @@
 // operations at (196, 1024, 512) and (49, 2048, 512).
 //
 // Design:
-//   * Rows are the flattened N*T*S rows.  A block owns a strip of BM = 128
-//     rows (two consumer warpgroups of 64) and BN = min(F rounded up to 64,
-//     256) columns, so each element of x is shifted and gated once at
-//     F <= 256, twice at F = 512.  Strips straddle frames: each row's own t
+//   * Rows are the flattened N*T*S rows.  A block owns a strip of BM rows
+//     (one warpgroup of 128 threads per 64 rows) and BN = min(F rounded up
+//     to 64, 256) columns, so each element of x is shifted and gated once
+//     at F <= 256, twice at F = 512.  BM = 64 at BN = 64 (two blocks an
+//     SM), else 128 (one).  Strips straddle frames: each row's own t
 //     decides its taps (w0 only if t > 0, w2 only if t < T-1) and its own
 //     n*T+t picks its gch row, so S = 49 and S = 196 waste no rows; a
 //     ragged last strip is masked (zero rows in, no stores out).
 //   * K runs in BK = 64-channel chunks (128 bytes: one 128-byte swizzle
 //     row).  A ring brings each chunk's three x tiles (rows r - S, r, r + S
 //     of [N*T*S, C]) and its [BK, BN] tile of W_net by cp.async, 16 bytes a
-//     thread, zero-filled where a row, a tap or a column is masked.  The
-//     loads of chunk k + 1 fly while chunk k's A tile is built and chunk
-//     k - 1's product runs.
-//   * The 256 threads build the chunk's gated bf16 A tile from the staged x
+//     thread, zero-filled where a row, a tap or a column is masked; at
+//     BN <= 128 also the chunk's three taps and the gch rows of the strip's
+//     first four frames (a row in a later frame, S < 43, reads its gch from
+//     global memory).  The loads of chunk k + 1 fly while chunk k's A tile
+//     is built and chunk k - 1's product runs.
+//   * The threads build the chunk's gated bf16 A tile from the staged x
 //     tiles into the 128-byte-swizzled K-major layout that wgmma reads; then
 //     fence.proxy.async, a barrier, and 4 x wgmma m64nBNk16 per warpgroup
 //     with the accumulators in registers, waited a chunk later.
@@ -39,14 +42,17 @@
 //     coalesced stores; rows past N*T*S and columns past F are not stored.
 //   * Deterministic: no atomics, every output one f32 sum in a fixed order.
 //
-// Shared memory (dynamic, raised with cudaFuncSetAttribute), at BN = 256:
+// Shared memory (dynamic, raised with cudaFuncSetAttribute), at BN = 256,
+// BM = 128:
 //     x ring    2 stages x 3 tiles x 128 rows x 128 B = 96 KB
 //     W ring    3 stages x 64 k-rows x 256 x 2 B      = 96 KB
 //     A tiles   2 x 128 rows x 128 B                  = 32 KB
-//   224 KB (+1 KB to align to 1024 bytes) of the 227 KB a block may hold:
-//   one block per SM.  W has one stage more than x because wgmma k - 1 still
-//   reads its W tile while the loads of chunk k + 1 are issued.  BN = 128:
-//   176 KB; BN = 64: 152 KB.
+//   224 KB (+ up to 1008 B to align the base to 1024) of the 227 KB a block
+//   may hold.  W has one stage more than x because wgmma k - 1 still reads
+//   its W tile while the loads of chunk k + 1 are issued.  BN = 128, BM =
+//   128: 176 KB + 1.75 KB of gates; BN = 64, BM = 64: 88 KB + 1.75 KB.
+//   At BN = 256 the 128 accumulators a thread leave no registers to stage
+//   the gates: the build reads taps and gch from global memory (L1/L2).
 //
 // Traps:
 //   * W_net is [C, F] with F contiguous, so B is MN-major.  Its tile is kept
@@ -57,9 +63,11 @@
 //     (16-byte chunk c of row r at r*128 + ((c ^ (r % 8)) * 16)); every tile
 //     base is 1024-byte aligned, so a descriptor advanced by 32 bytes a k16
 //     step stays on the pattern.
-//   * One block per SM: (49, 2048, 512) at 20 clips has 62 strips x 2
-//     column blocks, 124 blocks for 132 SMs (chip_smoke.py prints the grid
-//     of each site).
+//   * The first wgmma of a strip runs with scale-d = 0 instead of zeroed
+//     accumulators: a non-wgmma write to them would serialize the wgmmas.
+//   * One block per SM at BN >= 128: (49, 2048, 512) at 20 clips has 62
+//     strips x 2 column blocks, 124 blocks for 132 SMs (chip_smoke.py
+//     prints the grid of each site).
 //   * pool and atomics are action_stats' business, not this kernel's.
 
 #include <cuda_runtime.h>
@@ -70,21 +78,29 @@ namespace {
 
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 256;          // two warpgroups
-constexpr int BM = 128;                // rows of a strip
-constexpr int BK = 64;                 // channels of a chunk
-constexpr int kTile = BM * BK * 2;     // bytes of an x or A tile: 16 KB
+constexpr int BK = 64;                 // channels of a chunk: 128 bytes
 constexpr int kXStages = 2, kWStages = 3;
-constexpr int kVecs = BM * BK / 8 / kThreads;   // A vectors a thread: 4
+constexpr int kVecs = 4;               // A vectors a thread builds a chunk
+constexpr int kFrames = 4;             // gch rows staged a chunk
+constexpr int kGate = (3 + kFrames) * BK * 2;   // taps + gch of a chunk
 
-template <int BN>
+// Byte offsets into the dynamic shared memory, every tile 1024-byte
+// aligned.
+template <int BN, int BM>
 struct Smem {
+  // the gates ride the ring at BN <= 128; at BN = 256 the accumulators
+  // leave no registers for it and the build reads them from global memory
+  static constexpr bool kStageGates = BN <= 128;
+  static constexpr int kThreads = BM * 2;          // BM / 64 warpgroups
+  static constexpr int kTile = BM * BK * 2;        // an x or A tile
   static constexpr int kWTile = BK * BN * 2;
   static constexpr int kX = 0;                               // x ring
   static constexpr int kW = kX + kXStages * 3 * kTile;       // W ring
   static constexpr int kA = kW + kWStages * kWTile;          // A tiles
-  static constexpr int kBytes = kA + 2 * kTile;
+  static constexpr int kG = kA + 2 * kTile;                  // gate ring
+  static constexpr int kBytes = kG + (kStageGates ? kXStages * kGate : 0);
   static constexpr int kOutPitch = BN * 2 + 16;              // epilogue row
+  static_assert(BM * BK / 8 == kVecs * kThreads, "4 A vectors a thread");
   static_assert(BM * kOutPitch <= kW, "the epilogue reuses the x ring");
 };
 
@@ -101,8 +117,9 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
 }
 // generic-proxy writes to shared memory (cp.async, st.shared) made visible
 // to the async proxy that wgmma reads through
@@ -135,7 +152,8 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 
 // D[64 x N] += A[64 x 16] (K-major, shared) * B[16 x N] (MN-major, shared,
 // imm-trans-b = 1); f32 accumulators, N/2 a thread
-__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -152,10 +170,11 @@ __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db) {
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -184,10 +203,11 @@ __device__ __forceinline__ void wgmma_n128(float* d, uint64_t da, uint64_t db) {
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
+__device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
@@ -240,72 +260,52 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db) {
         "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
         "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// scale_d = 0: D = A * B (the accumulators' old values are not read)
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
-                                           uint64_t db) {
-  if constexpr (BN == 64) wgmma_n64(d, da, db);
-  else if constexpr (BN == 128) wgmma_n128(d, da, db);
-  else wgmma_n256(d, da, db);
-}
-
-// ---- the warp-level product: mma.sync m16n8k16 fed by ldmatrix ----------
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void ldsm_x4_t(uint32_t addr, uint32_t* r) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr));
-}
-__device__ __forceinline__ void mma16816(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+                                           uint64_t db, int scale_d) {
+  if constexpr (BN == 64) wgmma_n64(d, da, db, scale_d);
+  else if constexpr (BN == 128) wgmma_n128(d, da, db, scale_d);
+  else wgmma_n256(d, da, db, scale_d);
 }
 
 // ---- bf16 vectors -------------------------------------------------------
 
-__device__ __forceinline__ void unpack8(const uint4& r, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
+__device__ __forceinline__ uint32_t& word(uint4& v, int i) {
+  return (&v.x)[i];
 }
-
-__device__ __forceinline__ uint4 pack8(const float* f) {
-  uint4 r;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&r);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(f[2 * i], f[2 * i + 1]);
-  return r;
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return (&v.x)[i];
+}
+__device__ __forceinline__ float2 bf2(uint32_t w) {
+  __nv_bfloat162 h;
+  memcpy(&h, &w, 4);
+  return __bfloat1622float2(h);
+}
+__device__ __forceinline__ uint32_t pack2(float a, float b) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  uint32_t w;
+  memcpy(&w, &h, 4);
+  return w;
 }
 
 __device__ __forceinline__ uint4 ldg16(const bf16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// WG: the product on wgmma (two warpgroups of 64 rows x BN), else on
-// mma.sync (eight warps of 64 rows x BN/4).  Either way BN/2 accumulators
-// a thread.
-template <int BN, bool WG>
-__global__ void __launch_bounds__(kThreads, 1)
+template <int BN, int BM>
+__global__ void __launch_bounds__(BM * 2, BM == 64 ? 2 : 1)
 apply_strip_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
                    const bf16* __restrict__ g1, const bf16* __restrict__ gch,
                    const bf16* __restrict__ wn, bf16* __restrict__ out,
                    int M, int tlen, int S, int C, int F, int ncb) {
-  using L = Smem<BN>;
-  extern __shared__ uint8_t smem_raw[];
+  using L = Smem<BN, BM>;
+  constexpr int kThreads = L::kThreads, kTile = L::kTile;
+  constexpr int kRowStep = kThreads / 8;       // rows between a thread's
+  extern __shared__ uint8_t smem_raw[];        // A vectors
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   const uint32_t sbase = smem_u32(smem);
@@ -315,27 +315,32 @@ apply_strip_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
   const int f0 = (blockIdx.x % ncb) * BN;        // run next to each other
   const size_t slab = (size_t)S * C;             // one frame
 
-  // This thread's A vectors: rows r8 + 32 j, channels c8*8 .. c8*8+7 of
-  // each chunk.  It also brings their x with cp.async, so it reads back
+  // This thread's A vectors: rows r8 + kRowStep*j, channels c8*8 .. c8*8+7
+  // of each chunk.  It also brings their x with cp.async, so it reads back
   // only what it copied itself.
   const int c8 = tid % 8, r8 = tid / 8;
-  size_t xoff[kVecs], goff[kVecs];
-  float g1v[kVecs];
-  uint32_t rin = 0, rprev = 0, rnext = 0;       // bit j: row j's flags
+  // The strip's rows lie in frames nt0, nt0 + 1, ...; the gch rows of the
+  // first kFrames of them come with each chunk into shared memory (every
+  // site: S >= 49 puts a 128-row strip in at most 4 frames), a row in a
+  // later frame reads its gch from global memory.
+  // Row j of this thread is m0 + r8 + kRowStep*j.  Few registers: the
+  // accumulators take BN/2 of them.
+  const int nt0 = m0 / S, nframes = M / S;
+  const bf16* xrow = x + (size_t)(m0 + r8) * C + c8 * 8;   // row 0, chunk 0
+  const size_t xstep = (size_t)kRowStep * C;
+  uint32_t flags = 0;              // bit j: row in; 4 + j: t > 0; 8 + j: t < T-1
+  uint32_t frame = 0;              // byte j: row j's n*T+t - nt0 (< 128)
+  uint32_t g1p[kVecs / 2] = {};    // bf16 pairs of the rows' g1
 #pragma unroll
   for (int j = 0; j < kVecs; ++j) {
-    const int r = m0 + r8 + 32 * j;
-    xoff[j] = c8 * 8;
-    goff[j] = c8 * 8;
-    g1v[j] = 0.f;
+    const int r = m0 + r8 + kRowStep * j;
     if (r < M) {
       const int nt = r / S, t = nt % tlen;
-      xoff[j] += (size_t)r * C;
-      goff[j] += (size_t)nt * C;
-      g1v[j] = __bfloat162float(g1[r]);
-      rin |= 1u << j;
-      if (t > 0) rprev |= 1u << j;
-      if (t + 1 < tlen) rnext |= 1u << j;
+      flags |= 1u << j;
+      if (t > 0) flags |= 16u << j;
+      if (t + 1 < tlen) flags |= 256u << j;
+      frame |= (uint32_t)(nt - nt0) << (8 * j);
+      g1p[j / 2] |= (uint32_t)__bfloat16_as_ushort(g1[r]) << (16 * (j % 2));
     }
   }
 
@@ -344,10 +349,10 @@ apply_strip_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
     const uint32_t xs = sbase + L::kX + (kc % kXStages) * 3 * kTile;
 #pragma unroll
     for (int j = 0; j < kVecs; ++j) {
-      const uint32_t d = xs + (r8 + 32 * j) * 128 + c8 * 16;
-      const bf16* p = x + xoff[j] + k0;
-      const bool in = rin >> j & 1u, prev = rprev >> j & 1u,
-                 next = rnext >> j & 1u;
+      const uint32_t d = xs + (r8 + kRowStep * j) * 128 + c8 * 16;
+      const bf16* p = xrow + j * xstep + k0;
+      const bool in = flags >> j & 1u, prev = flags >> (4 + j) & 1u,
+                 next = flags >> (8 + j) & 1u;
       cp_async16(d, prev ? p - slab : x, prev);           // tile 0: t - 1
       cp_async16(d + kTile, in ? p : x, in);              // tile 1: t
       cp_async16(d + 2 * kTile, next ? p + slab : x, next);  // tile 2: t + 1
@@ -364,171 +369,157 @@ apply_strip_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
                          (((nc % 8) ^ (k % 8)) << 4);
       cp_async16(d, in ? wn + (size_t)(k0 + k) * F + f : wn, in);
     }
-    cp_async_commit();
-  };
-
-  auto build_a = [&](int kc) {
-    const int k0 = kc * BK + c8 * 8;
-    const uint8_t* xs = smem + L::kX + (kc % kXStages) * 3 * kTile;
-    uint8_t* as = smem + L::kA + (kc % 2) * kTile;
-    const uint4 tw0 = ldg16(wsh + k0), tw1 = ldg16(wsh + C + k0),
-                tw2 = ldg16(wsh + 2 * C + k0);
-#pragma unroll
-    for (int j = 0; j < kVecs; ++j) {
-      const int row = r8 + 32 * j;
-      const int o = row * 128 + c8 * 16;
-      const uint4 rg = ldg16(gch + goff[j] + kc * BK);
-      float v[8], a[8], w[8];
-      unpack8(*reinterpret_cast<const uint4*>(xs + kTile + o), a);
-      unpack8(tw1, w);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = w[i] * a[i];
-      unpack8(*reinterpret_cast<const uint4*>(xs + o), a);
-      unpack8(tw0, w);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] += w[i] * a[i];
-      unpack8(*reinterpret_cast<const uint4*>(xs + 2 * kTile + o), a);
-      unpack8(tw2, w);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] += w[i] * a[i];
-      unpack8(rg, w);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] *= g1v[j] + w[i];
-      *reinterpret_cast<uint4*>(as + row * 128 + ((c8 ^ (row % 8)) << 4)) =
-          pack8(v);
+    // the chunk's three taps and the gch rows of frames nt0 .. nt0 + 3
+    if constexpr (L::kStageGates) {
+      const uint32_t gs = sbase + L::kG + (kc % kXStages) * kGate;
+      if (tid < 3 * 8) {
+        cp_async16(gs + tid * 16, wsh + (tid / 8) * C + k0 + (tid % 8) * 8,
+                   true);
+      } else if (tid < (3 + kFrames) * 8) {
+        const int nt = nt0 + tid / 8 - 3;
+        cp_async16(gs + tid * 16,
+                   nt < nframes ? gch + (size_t)nt * C + k0 + (tid % 8) * 8
+                                : gch, nt < nframes);
+      }
     }
   };
 
-  constexpr int NT = BN / 32;                    // mma.sync: n8 tiles a warp
-  float acc[BN / 2];
+  // the gated tile in f32 (TPU kernel's order: w1*x, + w0*x[t-1],
+  // + w2*x[t+1], times g1 + gch), rounded once to bf16, stored swizzled
+  auto build_a = [&](int kc) {
+    const uint8_t* xs = smem + L::kX + (kc % kXStages) * 3 * kTile;
+    uint8_t* as = smem + L::kA + (kc % 2) * kTile;
+    const uint8_t* gs = smem + L::kG + (kc % kXStages) * kGate + c8 * 16;
+    const int k0 = kc * BK + c8 * 8;
+    uint4 tw0, tw1, tw2;
+    if constexpr (L::kStageGates) {
+      tw0 = *reinterpret_cast<const uint4*>(gs);
+      tw1 = *reinterpret_cast<const uint4*>(gs + 128);
+      tw2 = *reinterpret_cast<const uint4*>(gs + 256);
+    } else {
+      tw0 = ldg16(wsh + k0);
+      tw1 = ldg16(wsh + C + k0);
+      tw2 = ldg16(wsh + 2 * C + k0);
+    }
 #pragma unroll
-  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < kVecs; ++j) {
+      const int row = r8 + kRowStep * j;
+      const int o = row * 128 + c8 * 16;
+      const uint32_t fr = frame >> (8 * j) & 255u;
+      const uint4 rg = L::kStageGates && fr < kFrames
+          ? *reinterpret_cast<const uint4*>(gs + (3 + fr) * 128)
+          : ldg16(gch + (size_t)(nt0 + fr) * C + k0);
+      const float g1r = __bfloat162float(__ushort_as_bfloat16(
+          (unsigned short)(g1p[j / 2] >> (16 * (j % 2)))));
+      const uint4 xp = *reinterpret_cast<const uint4*>(xs + o),
+                  xc = *reinterpret_cast<const uint4*>(xs + kTile + o),
+                  xn = *reinterpret_cast<const uint4*>(xs + 2 * kTile + o);
+      uint4 res;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {      // one bf16 pair at a time
+        const float2 c = bf2(word(xc, i)), pv = bf2(word(xp, i)),
+                     nv = bf2(word(xn, i)), t0 = bf2(word(tw0, i)),
+                     t1 = bf2(word(tw1, i)), t2 = bf2(word(tw2, i)),
+                     g = bf2(word(rg, i));
+        float v0 = t1.x * c.x, v1 = t1.y * c.y;
+        v0 += t0.x * pv.x;
+        v1 += t0.y * pv.y;
+        v0 += t2.x * nv.x;
+        v1 += t2.y * nv.y;
+        v0 *= g1r + g.x;
+        v1 *= g1r + g.y;
+        word(res, i) = pack2(v0, v1);
+      }
+      *reinterpret_cast<uint4*>(as + row * 128 + ((c8 ^ (row % 8)) << 4)) =
+          res;
+    }
+  };
 
+  float acc[BN / 2];                   // the first wgmma sets them
   const int kt = C / BK;
-  load_chunk(0);
+  // one cp.async group a chunk (empty past the end), kXStages - 1 ahead
+#pragma unroll
+  for (int i = 0; i < kXStages - 1; ++i) {
+    if (i < kt) load_chunk(i);
+    cp_async_commit();
+  }
   for (int kc = 0; kc < kt; ++kc) {
-    cp_async_wait_all();               // chunk kc is in shared memory
+    cp_async_wait<kXStages - 2>();     // chunk kc is in shared memory
     fence_proxy_async();
-    __syncthreads();                   // ... for every thread; chunk kc - 1's
-                                       // x is spent, wgmma kc - 2 is done
-    if (kc + 1 < kt) load_chunk(kc + 1);
+    __syncthreads();                   // ... for every thread; the slots the
+                                       // next load takes are spent
+    if (kc + kXStages - 1 < kt) load_chunk(kc + kXStages - 1);
+    cp_async_commit();
     build_a(kc);
     fence_proxy_async();
     __syncthreads();                   // A tile kc complete
-    const uint32_t a_tile = sbase + L::kA + (kc % 2) * kTile;
+    const uint32_t a_rows = sbase + L::kA + (kc % 2) * kTile +
+                            (warp / 4) * 64 * 128;
     const uint32_t w_tile = sbase + L::kW + (kc % kWStages) * L::kWTile;
-    if constexpr (WG) {
-      const uint32_t a_rows = a_tile + (warp / 4) * 64 * 128;
-      wgmma_fence();
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk)
-        wgmma_tile<BN>(acc, desc_sw128(a_rows + kk * 32, 16, 1024),
-                       desc_sw128(w_tile + kk * 16 * 128, BK * 128, 1024));
-      wgmma_commit();
-      wgmma_wait<1>();                 // wgmma kc - 1 is done
-    } else {
-      const int wm = warp / 4, wn = warp % 4, mat = lane / 8;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t af[4][4], bfr[NT][2];
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
-          const int row = wm * 64 + mt * 16 + lane % 8 + (mat & 1) * 8;
-          const int ch = kk * 2 + (mat >> 1);
-          ldsm_x4(a_tile + row * 128 + ((ch ^ (row % 8)) << 4), af[mt]);
-        }
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          const int k = kk * 16 + lane % 8 + (mat & 1) * 8;
-          const int n = wn * (BN / 4) + np * 16 + (mat >> 1) * 8;
-          uint32_t r[4];
-          ldsm_x4_t(w_tile + (n / 64) * (BK * 128) + k * 128 +
-                        ((((n % 64) / 8) ^ (k % 8)) << 4), r);
-          bfr[2 * np][0] = r[0];
-          bfr[2 * np][1] = r[1];
-          bfr[2 * np + 1][0] = r[2];
-          bfr[2 * np + 1][1] = r[3];
-        }
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-          for (int nt = 0; nt < NT; ++nt)
-            mma16816(&acc[(mt * NT + nt) * 4], af[mt], bfr[nt][0],
-                     bfr[nt][1]);
-      }
-    }
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_tile<BN>(acc, desc_sw128(a_rows + kk * 32, 16, 1024),
+                     desc_sw128(w_tile + kk * 16 * 128, BK * 128, 1024),
+                     kc > 0 || kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();                   // wgmma kc - 1 is done
   }
-  if constexpr (WG) {
-    wgmma_wait<0>();
+  wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
-  }
+  for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
   __syncthreads();
 
   // epilogue: bf16 pairs into the spent x ring, then 16-byte stores
   uint8_t* stage = smem + L::kX;
-  auto put = [&](int row, int col, float v0, float v1) {
-    *reinterpret_cast<__nv_bfloat162*>(stage + row * L::kOutPitch +
-                                       col * 2) = __floats2bfloat162_rn(v0, v1);
-  };
-  if constexpr (WG) {
-    const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
+  const int row = (warp / 4) * 64 + (warp % 4) * 16 + lane / 4;
 #pragma unroll
-    for (int n8 = 0; n8 < BN / 8; ++n8)
+  for (int n8 = 0; n8 < BN / 8; ++n8)
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        put(row + 8 * i, n8 * 8 + 2 * (lane % 4), acc[n8 * 4 + 2 * i],
-            acc[n8 * 4 + 2 * i + 1]);
-  } else {
-    const int wm = warp / 4, wn = warp % 4;
-#pragma unroll
-    for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          put(wm * 64 + mt * 16 + lane / 4 + 8 * i,
-              wn * (BN / 4) + nt * 8 + 2 * (lane % 4),
-              acc[(mt * NT + nt) * 4 + 2 * i],
-              acc[(mt * NT + nt) * 4 + 2 * i + 1]);
-  }
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(
+          stage + (row + 8 * i) * L::kOutPitch + (n8 * 8 + 2 * (lane % 4)) * 2) =
+          __floats2bfloat162_rn(acc[n8 * 4 + 2 * i], acc[n8 * 4 + 2 * i + 1]);
   __syncthreads();
   constexpr int kPerRow = BN / 8;
   for (int v = tid; v < BM * kPerRow; v += kThreads) {
-    const int row = v / kPerRow, cv = v % kPerRow;
-    const int r = m0 + row, f = f0 + cv * 8;
+    const int rr = v / kPerRow, cv = v % kPerRow;
+    const int r = m0 + rr, f = f0 + cv * 8;
     if (r < M && f < F)
       *reinterpret_cast<uint4*>(out + (size_t)r * F + f) =
-          *reinterpret_cast<const uint4*>(stage + row * L::kOutPitch +
+          *reinterpret_cast<const uint4*>(stage + rr * L::kOutPitch +
                                           cv * 16);
   }
 }
 
-template <int BN, bool WG>
+template <int BN, int BM>
 int launch(const void* x, const void* w, const void* g1, const void* gch,
            const void* wn, void* out, int n, int t, int s, int c, int f,
            cudaStream_t stream) {
-  const int bytes = Smem<BN>::kBytes + 1024;     // + alignment to 1024
-  auto kernel = apply_strip_kernel<BN, WG>;
+  using L = Smem<BN, BM>;
+  // + room to align a 16-byte aligned base to 1024 bytes
+  const int bytes = L::kBytes + 1024 - 16;
+  auto kernel = apply_strip_kernel<BN, BM>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (e != cudaSuccess) return (int)e;
   const int m = n * t * s, ncb = (f + BN - 1) / BN;
   const int blocks = (m + BM - 1) / BM * ncb;
-  kernel<<<blocks, kThreads, bytes, stream>>>(
+  kernel<<<blocks, L::kThreads, bytes, stream>>>(
       (const bf16*)x, (const bf16*)w, (const bf16*)g1, (const bf16*)gch,
       (const bf16*)wn, (bf16*)out, m, t, s, c, f, ncb);
   return (int)cudaGetLastError();
 }
 
-template <bool WG>
+// BN = F rounded up to 64, at most 256; 64-row strips (two blocks an SM)
+// at BN = 64, else 128-row strips
 int apply_entry(const void* x, const void* w, const void* g1,
                 const void* gch, const void* wn, void* out, int n, int t,
                 int s, int c, int f, cudaStream_t st) {
-  if (f <= 64) return launch<64, WG>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
+  if (f <= 64) return launch<64, 64>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
   if (f <= 128)
-    return launch<128, WG>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
-  return launch<256, WG>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
+    return launch<128, 128>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
+  return launch<256, 128>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
 }
 
 }  // namespace
@@ -536,9 +527,9 @@ int apply_entry(const void* x, const void* w, const void* g1,
 // dtype 1 (bf16) only.  x [n*t*s, c], w [3, c], g1 [n*t*s], gch [n*t, c],
 // wn [c, f], out [n*t*s, f]: contiguous device tensors; c % 64 == 0,
 // f % 8 == 0 and x, w, gch, wn, out 16-byte aligned, else
-// cudaErrorInvalidValue.  wgmma picks the product: 1 wgmma, 0 mma.sync.
-// Returns the cudaError_t of the launch (0 = success).
-extern "C" int ehgr_action_apply_strip(int dtype, int wgmma, const void* x,
+// cudaErrorInvalidValue.  Returns the cudaError_t of the launch (0 =
+// success).
+extern "C" int ehgr_action_apply_strip(int dtype, const void* x,
                                        const void* w, const void* g1,
                                        const void* gch, const void* wn,
                                        void* out, int n, int t, int s, int c,
@@ -548,7 +539,6 @@ extern "C" int ehgr_action_apply_strip(int dtype, int wgmma, const void* x,
   if (dtype != 1 || c % BK != 0 || f % 8 != 0 || a % 16 != 0 ||
       n * t * s <= 0 || f <= 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  return wgmma ? apply_entry<true>(x, w, g1, gch, wn, out, n, t, s, c, f, st)
-               : apply_entry<false>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
+  return apply_entry(x, w, g1, gch, wn, out, n, t, s, c, f,
+                     (cudaStream_t)stream);
 }
