@@ -87,8 +87,10 @@ SITES = [(3136, 64, 64, 1), (3136, 256, 64, 2), (3136, 256, 128, 1),
 RAGGED = [(1000, 128, 32), (50, 100, 24)]
 # the routes of action_apply beyond the sites: S = 201 leaves the last
 # 128-row strip ragged at F = 512 (two column blocks) on the strip kernel;
-# C = 72 (C % 64 != 0) takes the tensor-core sweep
-ROUTE_SHAPES = [(201, 128, 512), (50, 72, 40)]
+# S = 15 puts a 64-row strip in five or six frames, the rows past the
+# fourth reading their gch from global memory; C = 72 (C % 64 != 0) takes
+# the tensor-core sweep
+ROUTE_SHAPES = [(201, 128, 512), (15, 64, 64), (50, 72, 40)]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 / fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1096,14 +1098,6 @@ def _bound_ms(nbytes, flops, dname):
     return nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dname] * 1e3
 
 
-def _strip_grid(rows, f):
-    """The launch of ``csrc/action_apply.cu`` at ``rows`` x F: (row strips,
-    column blocks, BN, BM) as its host code picks them."""
-    bn = 64 if f <= 64 else 128 if f <= 128 else 256
-    bm = 64 if bn == 64 else 128
-    return -(-rows // bm), -(-f // bn), bn, bm
-
-
 def time_kernels(torch, mega, n, gen):
     """Per site shape, bf16 (the main path's dtype): kernel, plain version,
     bare GEMM; bound from the bytes each function must move and the FLOPs
@@ -1142,11 +1136,9 @@ def time_kernels(torch, mega, n, gen):
             extra = ""
             if kernel == "action_apply":
                 r["route"] = mega._apply_route(torch.bfloat16, c, f, True)
-                strips, cols, bn, bm = _strip_grid(rows, f)
-                r["grid"] = dict(strips=strips, column_blocks=cols, BM=bm,
-                                 BN=bn, blocks=strips * cols)
-                extra = (f" route={r['route']} grid={strips}x{cols} "
-                         f"BM={bm} BN={bn}")
+                g = r["grid"] = mega.strip_grid(rows, f)
+                extra = (f" route={r['route']} grid={g['strips']}x"
+                         f"{g['column_blocks']} BM={g['BM']} BN={g['BN']}")
             rows_out.append(r)
             print(f"time {kernel:12s} S={s:4d} C={c:4d} F={f:3d} "
                   f"ms={r['ms']:.4f} bound={bound:.4f} ({by}) "
@@ -1351,8 +1343,9 @@ def kernel_table(checks, timings, launches):
         entry["per"] = per
         if name == "action_apply":
             entry["redesigned"] = ("PR 5: one gated A tile per row strip, a "
-                                   "cp.async ring; PR 3's kernel took 6.930 "
-                                   "ms a forward (PERF.md, PR 3 run 14)")
+                                   "cp.async ring, wgmma; PR 3's kernel took "
+                                   "6.930 ms a forward (PERF.md, PR 3 run "
+                                   "14)")
             entry["launches_strip_by_path"] = {
                 p: v["action_apply_strip"] for p, v in launches.items()
                 if v.get("action_apply_strip")}

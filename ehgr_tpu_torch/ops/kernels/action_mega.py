@@ -17,6 +17,7 @@ launches (the plain path does not count).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import torch
@@ -131,6 +132,15 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
 
 action_apply.launches = 0
 action_apply.route_launches = dict(strip=0, tc_sweep=0, fma_sweep=0)
+
+
+def strip_grid(rows: int, f: int) -> dict:
+    """The launch of the ``'strip'`` route at ``rows`` x F, as its host code
+    picks it (builds the library; for reports)."""
+    grid = (ctypes.c_int * 4)()
+    load("action_apply").ehgr_action_apply_strip_grid(rows, f, grid)
+    return dict(strips=grid[0], column_blocks=grid[1], BN=grid[2],
+                BM=grid[3], blocks=grid[0] * grid[1])
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # dtype (bf16 only), x, w, g1, gch, wn, out, n, t, s, c, f, stream
         "ehgr_action_apply_strip": [_I, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _I, _P],
+        # rows, f, int[4] out: strips, column blocks, BN, BM
+        "ehgr_action_apply_strip_grid": [_I, _I, _P],
     },
     "tsm_shift": {
         # dtype, x, y, n, t, s, c, fold, reverse, vec, bx, by, gx, gy, stream

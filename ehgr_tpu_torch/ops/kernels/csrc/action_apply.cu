@@ -511,13 +511,20 @@ int launch(const void* x, const void* w, const void* g1, const void* gch,
   return (int)cudaGetLastError();
 }
 
-// BN = F rounded up to 64, at most 256; 64-row strips (two blocks an SM)
-// at BN = 64, else 128-row strips
+// The launch geometry: BN = F rounded up to 64, at most 256; 64-row strips
+// (two blocks an SM) at BN = 64, else 128-row strips.
+void geometry(int f, int* bn, int* bm) {
+  *bn = f <= 64 ? 64 : f <= 128 ? 128 : 256;
+  *bm = *bn == 64 ? 64 : 128;
+}
+
 int apply_entry(const void* x, const void* w, const void* g1,
                 const void* gch, const void* wn, void* out, int n, int t,
                 int s, int c, int f, cudaStream_t st) {
-  if (f <= 64) return launch<64, 64>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
-  if (f <= 128)
+  int bn, bm;
+  geometry(f, &bn, &bm);
+  if (bn == 64) return launch<64, 64>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
+  if (bn == 128)
     return launch<128, 128>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
   return launch<256, 128>(x, w, g1, gch, wn, out, n, t, s, c, f, st);
 }
@@ -541,4 +548,13 @@ extern "C" int ehgr_action_apply_strip(int dtype, const void* x,
     return (int)cudaErrorInvalidValue;
   return apply_entry(x, w, g1, gch, wn, out, n, t, s, c, f,
                      (cudaStream_t)stream);
+}
+
+// The grid ehgr_action_apply_strip launches for rows x f: grid[0] row
+// strips, grid[1] column blocks, grid[2] BN, grid[3] BM.
+extern "C" int ehgr_action_apply_strip_grid(int rows, int f, int* grid) {
+  geometry(f, &grid[2], &grid[3]);
+  grid[0] = (rows + grid[3] - 1) / grid[3];
+  grid[1] = (f + grid[2] - 1) / grid[2];
+  return 0;
 }

@@ -129,6 +129,9 @@ class TestWrappers:
         assert path.parent == build.BUILD_DIR
         assert path.name.startswith("libaction_mega-")
         assert "ehgr_action_stats" in build.SIGNATURES["action_mega"]
+        strip = build.library_path("action_apply")
+        assert strip.parent == build.BUILD_DIR and strip != path
+        assert "ehgr_action_apply_strip" in build.SIGNATURES["action_apply"]
 
 
 # (S, C, F) of the 16 ACTION sites of ResNet-50 at 224^2
