@@ -1342,10 +1342,10 @@ def kernel_table(checks, timings, launches):
             entry["matmul_ms"] = tot["matmul_ms"]
         entry["per"] = per
         if name == "action_apply":
-            entry["redesigned"] = ("PR 5: one gated A tile per row strip, a "
-                                   "cp.async ring, wgmma; PR 3's kernel took "
-                                   "6.930 ms a forward (PERF.md, PR 3 run "
-                                   "14)")
+            entry["redesigned"] = ("one gated A tile per row strip, a "
+                                   "cp.async ring, wgmma; the two-sweep "
+                                   "kernel before it took 6.930 ms a "
+                                   "forward (PERF.md, kernel table)")
             entry["launches_strip_by_path"] = {
                 p: v["action_apply_strip"] for p, v in launches.items()
                 if v.get("action_apply_strip")}
@@ -1422,7 +1422,7 @@ def main(argv=None) -> int:
                    help="run only the fp32 train-step gates against "
                    "float64 (MTMM in both BN settings, SD) for these seeds "
                    "and write every leaf's error to --out")
-    p.add_argument("--out", default="chiprun_out/parity_leaves.json",
+    p.add_argument("--out", default="parity_leaves.json",
                    help="where --parity-seeds writes its readings")
     args = p.parse_args(argv)
 

@@ -49,7 +49,7 @@
 //     A tiles   2 x 128 rows x 128 B                  = 32 KB
 //   224 KB (+ up to 1008 B to align the base to 1024) of the 227 KB a block
 //   may hold.  W has one stage more than x because wgmma k - 1 still reads
-//   its W tile while the loads of chunk k + 1 are issued.  BN = 128, BM =
+//   its W tile while the loads of chunk k + 1 start.  BN = 128, BM =
 //   128: 176 KB + 1.75 KB of gates; BN = 64, BM = 64: 88 KB + 1.75 KB.
 //   At BN = 256 the 128 accumulators a thread leave no registers to stage
 //   the gates: the build reads taps and gch from global memory (L1/L2).
