@@ -82,11 +82,11 @@ class TestSdSteps:
     def test_accum_gap_is_a_relu_kink(self):
         """The second microbatch of the ``accum_steps=2`` step puts one
         output of ``scala1.2``'s first BN at -4.8e-8 in a float64 run of
-        the port, inside both f32 runs' rounding of it (port +5.2e-6, JAX
-        -5.2e-6, jitted as its train step is): the two runs take its ReLU
-        on opposite sides, and that element's gradient reaches the leaves
-        of KINK_UPSTREAM only.  The port's f32 output of that BN is no
-        farther from float64 than JAX's (max abs error 3.1e-5 against
+        the port, inside both f32 runs' rounding of it (port +2.0e-6 on one
+        thread, JAX -5.2e-6, jitted as its train step is): the two runs take
+        its ReLU on opposite sides, and that element's gradient reaches the
+        leaves of KINK_UPSTREAM only.  The port's f32 output of that BN is
+        no farther from float64 than JAX's (max abs error 3.1e-5 against
         4.6e-5)."""
         flat0 = jax_result("tsn_sd", "sd", 2, k=1)[0]
         rgb = make_batches(0, False, n=N * 2)[0]["rgb"][N:]
@@ -102,18 +102,26 @@ class TestSdSteps:
         (jax32,), = flatten_dict(mut["intermediates"]).values()
         jax32 = np.asarray(jax32, np.float64).reshape(N * T, -1)
         port = {}
-        for dtype in (torch.float32, torch.float64):
-            with tiny_resnet():
-                m = variant("tsn_sd", num_class=CLS, num_segments=T,
-                            partial_bn=False, dropout=0.0, dtype=dtype,
-                            device="cpu")
-            load_jax_variables(m, flat0)
-            m.to(dtype).train()
-            m.scala1[2].op[2].register_forward_hook(
-                lambda mod, i, o, dtype=dtype: port.__setitem__(
-                    dtype, o.detach().double().reshape(N * T, -1).numpy()))
-            m(normalize_clip(torch.as_tensor(rgb), MEAN, STD,
-                             dtype=torch.float32))
+        # one thread: a float64 CPU convolution over many threads stalls for
+        # minutes when other test processes hold the cores
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            for dtype in (torch.float32, torch.float64):
+                with tiny_resnet():
+                    m = variant("tsn_sd", num_class=CLS, num_segments=T,
+                                partial_bn=False, dropout=0.0, dtype=dtype,
+                                device="cpu")
+                load_jax_variables(m, flat0)
+                m.to(dtype).train()
+                m.scala1[2].op[2].register_forward_hook(
+                    lambda mod, i, o, dtype=dtype: port.__setitem__(
+                        dtype,
+                        o.detach().double().reshape(N * T, -1).numpy()))
+                m(normalize_clip(torch.as_tensor(rgb), MEAN, STD,
+                                 dtype=torch.float32))
+        finally:
+            torch.set_num_threads(threads)
         f64, f32 = port[torch.float64], port[torch.float32]
         port_err, jax_err = np.abs(f32 - f64), np.abs(jax32 - f64)
         flips = np.argwhere((f32 > 0) != (jax32 > 0))
