@@ -191,6 +191,19 @@ def pool_accumulation_delta(torch, d):
                 f32_acc_rel=_rel_err(want.to(bf16), want)[1])
 
 
+def _launched_route(mega, call):
+    """``call()``'s result and the route of ``action_apply`` that it
+    launched, read from the wrapper's per-route count (zeroed first)."""
+    counts = mega.action_apply.route_launches
+    for k in counts:
+        counts[k] = 0
+    out = call()
+    moved = [k for k, v in counts.items() if v]
+    if len(moved) != 1:
+        raise AssertionError(f"action_apply launched routes {counts}")
+    return out, moved[0]
+
+
 def check_kernels(torch, mega, n, gen):
     """Each kernel against its plain version at every site shape, fp32 and
     bf16; returns per-(shape, dtype) errors and raises on a miss."""
@@ -199,15 +212,14 @@ def check_kernels(torch, mega, n, gen):
     for s, c, f in shapes:
         for dname in ("float32", "bfloat16"):
             d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen)
-            route = mega._apply_route(d["x4"].dtype, c, f, all(
-                d[k].data_ptr() % 16 == 0 for k in ("x4", "w", "gch", "wn")))
             ref = {k: v.float() for k, v in d.items()}   # same values, f32
             got = dict(zip(("mc", "pool", "x3"),
                            mega.action_stats(d["x4"], d["w"], d["wp3"])))
             want = dict(zip(("mc", "pool", "x3"), mega.action_stats_plain(
                 ref["x4"], ref["w"], ref["wp3"])))
-            got["out"] = mega.action_apply(d["x4"], d["w"], d["g1"],
-                                           d["gch"], d["wn"])
+            got["out"], route = _launched_route(
+                mega, lambda: mega.action_apply(d["x4"], d["w"], d["g1"],
+                                                d["gch"], d["wn"]))
             want["out"] = mega.action_apply_plain(
                 ref["x4"], ref["w"], ref["g1"], ref["gch"], ref["wn"])
             torch.cuda.synchronize()
@@ -1135,7 +1147,7 @@ def time_kernels(torch, mega, n, gen):
             r["roofline_share"] = bound / r["ms"]
             extra = ""
             if kernel == "action_apply":
-                r["route"] = mega._apply_route(torch.bfloat16, c, f, True)
+                r["route"] = _launched_route(mega, lambda: fk(*args))[1]
                 g = r["grid"] = mega.strip_grid(rows, f)
                 extra = (f" route={r['route']} grid={g['strips']}x"
                          f"{g['column_blocks']} BM={g['BM']} BN={g['BN']}")
@@ -1343,9 +1355,9 @@ def kernel_table(checks, timings, launches):
         entry["per"] = per
         if name == "action_apply":
             entry["redesigned"] = ("one gated A tile per row strip, a "
-                                   "cp.async ring, wgmma; the two-sweep "
-                                   "kernel before it took 6.930 ms a "
-                                   "forward (PERF.md, kernel table)")
+                                   "cp.async ring, wgmma; the earlier "
+                                   "kernel's time is in PERF.md's kernel "
+                                   "table")
             entry["launches_strip_by_path"] = {
                 p: v["action_apply_strip"] for p, v in launches.items()
                 if v.get("action_apply_strip")}

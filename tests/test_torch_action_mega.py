@@ -22,6 +22,8 @@ from ehgr_tpu_torch.ops.action import ActionConv, ActionGate, TSMConv
 from ehgr_tpu_torch.ops.kernels import action_mega as mega
 from ehgr_tpu_torch.ops.kernels import build
 
+from test_torch_guards import _OnCuda
+
 N, T, H, W, C = 2, 4, 8, 8, 32
 CR, F = C // 16, 16
 TOL = dict(rtol=1e-4, atol=1e-4)
@@ -138,15 +140,6 @@ class TestWrappers:
 RESNET50_SITES = [(3136, 64, 64), (3136, 256, 64), (3136, 256, 128),
                   (784, 512, 128), (784, 512, 256), (196, 1024, 256),
                   (196, 1024, 512), (49, 2048, 512)]
-
-
-class _OnCuda(torch.Tensor):
-    """A CPU tensor that reports ``cuda:0``, so a wrapper takes its CUDA
-    branch on a machine without a card."""
-
-    @property
-    def device(self):
-        return torch.device("cuda", 0)
 
 
 class TestApplyRoute:
