@@ -7,22 +7,24 @@ Phases; any miss raises and the run exits nonzero:
    per source, all started together;
 2. hold ``action_stats`` / ``action_apply`` against their plain versions at
    the eight ResNet-50 ACTION site shapes of the main path plus two ragged
-   shapes and two more routes of ``action_apply`` (printed per shape), in
-   fp32 (TF32 off) and in bf16 (plain version in f32 from the same bf16
-   inputs); and measure how far the TPU kernel's bf16 running sum of
-   ``pool`` would land from the f32 sum kept here;
+   shapes, three more routes of ``action_apply`` and one shape at T=5 (each
+   kernel's route printed per shape), in fp32 (TF32 off) and in bf16 (plain
+   version in f32 from the same bf16 inputs), ``action_stats`` also
+   bitwise equal over two calls; and measure how far the TPU kernel's bf16
+   running sum of ``pool`` would land from the f32 sum kept here;
 3. hold ``learnable_shift_fwd`` / ``learnable_shift_bwd`` (y, dx, dw)
    against autograd of the plain shift at the site shapes at 8 clips and
    the two ragged shapes, fp32 and bf16;
 4. hold ``tsm_shift`` forward and reverse bitwise equal to the plain shift
    at the site shapes at 8 clips and two ragged shapes, fp32 and bf16; and
    ``action_prologue`` (x_shift, mc, pool, x3) against its plain version
-   as in 2;
+   and over two calls as in 2;
 5. serve: ``evaluate`` over ``make_score_fn`` on the full-width TSN + ACTION
    ResNet-50 (T=8, 224^2, 83 classes, bf16, ``action_fused='mega'``,
    weights drawn from a seeded ``torch.Generator``) for a few request
    batches of uint8 videos, with the kernels' launch counters zeroed just
-   before and read just after (``action_apply`` on its strip kernel,
+   before and read just after (``action_stats`` on its window kernel,
+   ``csrc/action_stats.cu``, and ``action_apply`` on its strip kernel,
    ``csrc/action_apply.cu``, at all 16 sites); then the logits against the
    plain path
    (``action_fused=None``) in fp32 and in bf16; one scorer call traced with
@@ -89,8 +91,11 @@ RAGGED = [(1000, 128, 32), (50, 100, 24)]
 # 128-row strip ragged at F = 512 (two column blocks) on the strip kernel;
 # S = 15 puts a 64-row strip in five or six frames, the rows past the
 # fourth reading their gch from global memory; C = 72 (C % 64 != 0) takes
-# the tensor-core sweep
+# the FMA sweep in bf16 (and so does action_stats)
 ROUTE_SHAPES = [(201, 128, 512), (15, 64, 64), (50, 72, 40)]
+# (T, S, C, F) off T = 8: T % TG != 0 leaves masked frames in the window
+# kernel's last frame group
+T_SHAPES = [(5, 196, 128, 64)]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 / fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -132,9 +137,14 @@ BF16_SLACK = 1.5
 # readings (3 runs, 2 modes, 4 heads; H100, PERF.md) the ratio to the plain
 # model's bf16 error ranged 0.81-1.40, the final head the widest
 HEADS_BF16_SLACK = 2.0
+# launches of one ACTION forward ('mega', or 'vjp' in a train step) and of
+# one SD forward in 'prologue': every launch on the main path's route
+MEGA_FORWARD = {"action_stats": 16, "action_stats_window": 16,
+                "action_apply": 16, "action_apply_strip": 16}
+PROLOGUE_FORWARD = {"action_prologue": 16, "action_prologue_window": 16}
 
 
-def _inputs(torch, n, s, c, f, dtype, gen):
+def _inputs(torch, n, s, c, f, dtype, gen, t=T):
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, generator=gen, device="cuda") *
                 scale).to(dtype)
@@ -142,9 +152,9 @@ def _inputs(torch, n, s, c, f, dtype, gen):
     def rand(*shape, lo=0.0, hi=1.0):
         return (lo + (hi - lo) * torch.rand(shape, generator=gen,
                                             device="cuda")).to(dtype)
-    return dict(x4=randn(n, T, s, c), w=randn(3, c),
+    return dict(x4=randn(n, t, s, c), w=randn(3, c),
                 wp3=randn(c, c // 16, scale=c ** -0.5),
-                g1=rand(n, T, s, 1), gch=rand(n, T, c, lo=3.0, hi=5.0),
+                g1=rand(n, t, s, 1), gch=rand(n, t, c, lo=3.0, hi=5.0),
                 wn=randn(c, f, scale=c ** -0.5))
 
 
@@ -191,60 +201,81 @@ def pool_accumulation_delta(torch, d):
                 f32_acc_rel=_rel_err(want.to(bf16), want)[1])
 
 
-def _launched_route(mega, call):
-    """``call()``'s result and the route of ``action_apply`` that it
-    launched, read from the wrapper's per-route count (zeroed first)."""
-    counts = mega.action_apply.route_launches
+def _launched_route(wrapper, call):
+    """``call()``'s result and the route of ``wrapper`` that it launched,
+    read from the wrapper's per-route count (zeroed first)."""
+    counts = wrapper.route_launches
     for k in counts:
         counts[k] = 0
     out = call()
     moved = [k for k, v in counts.items() if v]
     if len(moved) != 1:
-        raise AssertionError(f"action_apply launched routes {counts}")
+        raise AssertionError(f"{wrapper.__name__} launched routes {counts}")
     return out, moved[0]
+
+
+def _repeat_is_bitwise(torch, first, call):
+    """Whether a second ``call()`` gives outputs bitwise equal to
+    ``first`` (no atomics: every sum in a fixed order)."""
+    again = call()
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 def check_kernels(torch, mega, n, gen):
     """Each kernel against its plain version at every site shape, fp32 and
-    bf16; returns per-(shape, dtype) errors and raises on a miss."""
+    bf16, ``action_stats`` also bitwise over two calls; returns
+    per-(shape, dtype) errors and raises on a miss."""
     results, pool_acc = [], []
-    shapes = [s[:3] for s in SITES] + RAGGED + ROUTE_SHAPES
-    for s, c, f in shapes:
+    shapes = [(T,) + s[:3] for s in SITES + RAGGED + ROUTE_SHAPES] + T_SHAPES
+    for t, s, c, f in shapes:
         for dname in ("float32", "bfloat16"):
-            d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen)
+            d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen, t)
             ref = {k: v.float() for k, v in d.items()}   # same values, f32
-            got = dict(zip(("mc", "pool", "x3"),
-                           mega.action_stats(d["x4"], d["w"], d["wp3"])))
+            stats = lambda: mega.action_stats(d["x4"], d["w"], d["wp3"])
+            first, routes = {}, {}
+            first["stats"], routes["action_stats"] = _launched_route(
+                mega.action_stats, stats)
+            got = dict(zip(("mc", "pool", "x3"), first["stats"]))
             want = dict(zip(("mc", "pool", "x3"), mega.action_stats_plain(
                 ref["x4"], ref["w"], ref["wp3"])))
-            got["out"], route = _launched_route(
-                mega, lambda: mega.action_apply(d["x4"], d["w"], d["g1"],
-                                                d["gch"], d["wn"]))
+            got["out"], routes["action_apply"] = _launched_route(
+                mega.action_apply,
+                lambda: mega.action_apply(d["x4"], d["w"], d["g1"],
+                                          d["gch"], d["wn"]))
             want["out"] = mega.action_apply_plain(
                 ref["x4"], ref["w"], ref["g1"], ref["gch"], ref["wn"])
             torch.cuda.synchronize()
+            bitwise = _repeat_is_bitwise(torch, first["stats"], stats)
             for name in got:
                 err, rel = _rel_err(got[name], want[name])
                 kernel = "action_apply" if name == "out" else "action_stats"
+                route = routes[kernel]
                 ok = rel <= TOL[dname] and math.isfinite(err)
-                results.append(dict(kernel=kernel, output=name, S=s, C=c,
-                                    F=f, dtype=dname, max_abs_err=err,
-                                    max_rel_err=rel, tol=TOL[dname], ok=ok))
-                if name == "out":
-                    results[-1]["route"] = route
-                print(f"check {kernel:12s} {name:4s} S={s:4d} C={c:4d} "
-                      f"F={f:3d} {dname:8s} max_abs_err={err:.3e} "
+                results.append(dict(kernel=kernel, output=name, T=t, S=s,
+                                    C=c, F=f, dtype=dname, max_abs_err=err,
+                                    max_rel_err=rel, tol=TOL[dname], ok=ok,
+                                    route=route))
+                tail = ""
+                if kernel == "action_stats":
+                    results[-1]["bitwise_repeat"] = bitwise
+                    tail = f" repeat bitwise {bitwise}"
+                print(f"check {kernel:12s} {name:4s} T={t} S={s:4d} "
+                      f"C={c:4d} F={f:3d} {dname:8s} max_abs_err={err:.3e} "
                       f"rel={rel:.3e} tol={TOL[dname]:.0e} "
-                      f"{'ok' if ok else 'MISS'}"
-                      f"{' ' + route if name == 'out' else ''}", flush=True)
+                      f"{'ok' if ok else 'MISS'} {route}{tail}", flush=True)
                 if not ok:
                     raise AssertionError(
                         f"{kernel}.{name} disagrees with its plain version "
-                        f"at S={s} C={c} F={f} {dname}: rel {rel:.3e} > "
-                        f"{TOL[dname]}")
+                        f"at T={t} S={s} C={c} F={f} {dname}: rel {rel:.3e} "
+                        f"> {TOL[dname]}")
+            if not bitwise:
+                raise AssertionError(f"action_stats ({routes['action_stats']}"
+                                     f") differs between two calls at T={t} "
+                                     f"S={s} C={c} {dname}")
             if dname == "bfloat16" and (s, c, f) in [x[:3] for x in SITES]:
                 pool_acc.append(pool_accumulation_delta(torch, d))
-            del d, ref, got, want
+            del d, ref, got, want, first
     print("pool_accumulation " + json.dumps(pool_acc), flush=True)
     return results, pool_acc
 
@@ -366,7 +397,8 @@ def _counters():
     counter; ``tsm_shift`` counts both directions, ``tsm_shift_reverse`` the
     reverse launches among them; ``action_apply`` counts every route,
     ``action_apply_strip`` its main path's route (``csrc/action_apply.cu``)
-    among them."""
+    among them, and ``action_stats_window`` / ``action_prologue_window``
+    those of the window kernel (``csrc/action_stats.cu``)."""
     from ehgr_tpu_torch.ops.kernels import action_fused as fused
     from ehgr_tpu_torch.ops.kernels import action_mega as mega
     from ehgr_tpu_torch.ops.kernels import shift as shk
@@ -375,10 +407,14 @@ def _counters():
     return {"learnable_shift_fwd": (shk.learnable_shift_fwd, "launches"),
             "learnable_shift_bwd": (shk.learnable_shift_bwd, "launches"),
             "action_stats": (mega.action_stats, "launches"),
+            "action_stats_window": (mega.action_stats.route_launches,
+                                    "window"),
             "action_apply": (mega.action_apply, "launches"),
             "action_apply_strip": (mega.action_apply.route_launches,
                                    "strip"),
             "action_prologue": (fused.action_prologue, "launches"),
+            "action_prologue_window": (fused.action_prologue.route_launches,
+                                       "window"),
             "tsm_shift": (tk.tsm_shift, "launches"),
             "tsm_shift_reverse": (tk.tsm_shift, "reverse_launches")}
 
@@ -593,7 +629,7 @@ def train(torch, seed):
     model = _train_model(torch, seed, "vjp", torch.bfloat16, 0.5)
     return run_steps(torch, "train", model, "mtmm", seed, {
         "learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
-        "action_stats": 16, "action_apply": 16, "action_apply_strip": 16})
+        **MEGA_FORWARD})
 
 
 def _frozen_bn_state(torch, seed, batch, arch="tsn_mtmm"):
@@ -787,31 +823,43 @@ def check_tsm(torch, tk, gen):
 
 def check_prologue(torch, fused, n, gen):
     """``action_prologue`` against its plain version (in f32 from the same
-    values) at the 8 site shapes (F unused) and the 2 ragged ones, all four
-    outputs, fp32 and bf16; raises on a miss."""
+    values) and bitwise over two calls, at the 8 site shapes (F unused), the
+    2 ragged ones, the routes' shapes and the T=5 one, all four outputs,
+    fp32 and bf16; raises on a miss."""
     results = []
-    for s, c, f in [site[:3] for site in SITES] + RAGGED:
+    shapes = [(T,) + s[:3] for s in SITES + RAGGED + ROUTE_SHAPES] + T_SHAPES
+    for t, s, c, f in shapes:
         for dname in ("float32", "bfloat16"):
-            d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen)
-            got = fused.action_prologue(d["x4"], d["w"], d["wp3"])
+            d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen, t)
+            call = lambda: fused.action_prologue(d["x4"], d["w"], d["wp3"])
+            got, route = _launched_route(fused.action_prologue, call)
             want = fused.action_prologue_plain(
                 d["x4"].float(), d["w"].float(), d["wp3"].float())
             torch.cuda.synchronize()
+            bitwise = _repeat_is_bitwise(torch, got, call)
             for name, g, w in zip(("x_shift", "mc", "pool", "x3"), got,
                                   want):
                 err, rel = _rel_err(g, w)
                 ok = rel <= TOL[dname] and math.isfinite(err)
                 results.append(dict(kernel="action_prologue", output=name,
-                                    S=s, C=c, dtype=dname, max_abs_err=err,
-                                    max_rel_err=rel, tol=TOL[dname], ok=ok))
-                print(f"check action_prologue {name:7s} S={s:4d} C={c:4d} "
-                      f"{dname:8s} max_abs_err={err:.3e} rel={rel:.3e} "
-                      f"tol={TOL[dname]:.0e} {'ok' if ok else 'MISS'}",
-                      flush=True)
+                                    T=t, S=s, C=c, dtype=dname,
+                                    max_abs_err=err, max_rel_err=rel,
+                                    tol=TOL[dname], ok=ok, route=route,
+                                    bitwise_repeat=bitwise))
+                print(f"check action_prologue {name:7s} T={t} S={s:4d} "
+                      f"C={c:4d} {dname:8s} max_abs_err={err:.3e} "
+                      f"rel={rel:.3e} tol={TOL[dname]:.0e} "
+                      f"{'ok' if ok else 'MISS'} {route} repeat bitwise "
+                      f"{bitwise}", flush=True)
                 if not ok:
                     raise AssertionError(
                         f"action_prologue.{name} disagrees with its plain "
-                        f"version at S={s} C={c} {dname}: rel {rel:.3e}")
+                        f"version at T={t} S={s} C={c} {dname}: rel "
+                        f"{rel:.3e}")
+            if not bitwise:
+                raise AssertionError(f"action_prologue ({route}) differs "
+                                     f"between two calls at T={t} S={s} "
+                                     f"C={c} {dname}")
             del d, got, want
     return results
 
@@ -980,11 +1028,9 @@ def sd_deploy(torch, seed, trained, batches):
         m.load_state_dict(plain.state_dict())
         m.dtype = torch.bfloat16
     out = {"serve_prologue": serve(torch, models["prologue"], batches,
-                                   {"action_prologue": 16},
-                                   "sd_serve_prologue", heads=4),
-           "serve_mega": serve(torch, models["mega"], batches,
-                               {"action_stats": 16, "action_apply": 16,
-                                "action_apply_strip": 16},
+                                   PROLOGUE_FORWARD, "sd_serve_prologue",
+                                   heads=4),
+           "serve_mega": serve(torch, models["mega"], batches, MEGA_FORWARD,
                                "sd_serve_mega", heads=4)}
 
     with torch.inference_mode():
@@ -1044,7 +1090,8 @@ def sd_deploy(torch, seed, trained, batches):
                               plain_bf16_logit_rel=theirs,
                               bf16_tol=BF16_SLACK * theirs + LOGIT_TOL)
             if launches != {**{n: 0 for n in launches},
-                            "action_prologue": want}:
+                            "action_prologue": want,
+                            "action_prologue_window": want}:
                 raise AssertionError(f"tsn_middle{k}: launches {launches}, "
                                      f"want {want} prologue launches")
             if not rel <= LOGIT_TOL or not mine <= middles[k]["bf16_tol"] \
@@ -1113,8 +1160,9 @@ def _bound_ms(nbytes, flops, dname):
 def time_kernels(torch, mega, n, gen):
     """Per site shape, bf16 (the main path's dtype): kernel, plain version,
     bare GEMM; bound from the bytes each function must move and the FLOPs
-    it does; for ``action_apply`` the route and, on the strip kernel, its
-    grid."""
+    it does; each kernel's route (read from its launch counts) and its
+    grid: the strip kernel's for ``action_apply``, the window kernel's
+    (TG, blocks) for ``action_stats``."""
     rows_out = []
     for s, c, f, count in SITES:
         d = _inputs(torch, n, s, c, f, torch.bfloat16, gen)
@@ -1145,20 +1193,28 @@ def time_kernels(torch, mega, n, gen):
                      plain_ms=_time_ms(torch, lambda: fp(*args)),
                      matmul_ms=_time_ms(torch, lambda: xb @ gemm_w))
             r["roofline_share"] = bound / r["ms"]
-            extra = ""
+            r["route"] = _launched_route(fk, lambda: fk(*args))[1]
             if kernel == "action_apply":
-                r["route"] = _launched_route(mega, lambda: fk(*args))[1]
                 g = r["grid"] = mega.strip_grid(rows, f)
-                extra = (f" route={r['route']} grid={g['strips']}x"
-                         f"{g['column_blocks']} BM={g['BM']} BN={g['BN']}")
+                extra = (f" grid={g['strips']}x{g['column_blocks']} "
+                         f"BM={g['BM']} BN={g['BN']}")
+            else:
+                g = r["grid"] = mega.window_grid(n, T, s, c, cr)
+                extra = _window_text(g)
             rows_out.append(r)
             print(f"time {kernel:12s} S={s:4d} C={c:4d} F={f:3d} "
                   f"ms={r['ms']:.4f} bound={bound:.4f} ({by}) "
                   f"share={r['roofline_share']:.3f} "
-                  f"plain={r['plain_ms']:.4f} matmul={r['matmul_ms']:.4f}"
-                  f"{extra}", flush=True)
+                  f"plain={r['plain_ms']:.4f} matmul={r['matmul_ms']:.4f} "
+                  f"route={r['route']}{extra}", flush=True)
         del d, xb
     return rows_out
+
+
+def _window_text(g):
+    return (f" TG={g['TG']} N={g['N']} blocks={g['blocks']} "
+            f"({g['strips']} strips x {g['frame_groups']} frame groups a "
+            f"clip) threads={g['threads']} stages={g['stages']}")
 
 
 def _conv3d_shift(torch, x4, w):
@@ -1275,12 +1331,13 @@ def time_tsm(torch, tk, gen):
     return rows_out
 
 
-def time_prologue(torch, fused, n, gen):
+def time_prologue(torch, fused, mega, n, gen):
     """Per distinct (S, C) of the sites at the served batch's ``n`` clips,
-    bf16: the prologue kernel, its plain version and the bare ``x @ W_p3``
-    GEMM (no single PyTorch call computes the function).  Bound: x read
-    once, x_shift, mc, pool and x3 written once, the taps and W_p3 read
-    once, at 3.35 TB/s, beside the GEMM's FLOPs at the bf16 peak."""
+    bf16: the prologue kernel (its route and grid), its plain version and
+    the bare ``x @ W_p3`` GEMM (no single PyTorch call computes the
+    function).  Bound: x read once, x_shift, mc, pool and x3 written once,
+    the taps and W_p3 read once, at 3.35 TB/s, beside the GEMM's FLOPs at
+    the bf16 peak."""
     rows_out = []
     for s, c, count in _shift_shapes():
         d = _inputs(torch, n, s, c, 16, torch.bfloat16, gen)
@@ -1299,11 +1356,15 @@ def time_prologue(torch, fused, n, gen):
                                    lambda: fused.action_prologue_plain(*args)),
                  matmul_ms=_time_ms(torch, lambda: xb @ d["wp3"]))
         r["roofline_share"] = r["bound_ms"] / r["ms"]
+        r["route"] = _launched_route(
+            fused.action_prologue, lambda: fused.action_prologue(*args))[1]
+        g = r["grid"] = mega.window_grid(n, T, s, c, cr)
         rows_out.append(r)
         print(f"time action_prologue S={s:4d} C={c:4d} ms={r['ms']:.4f} "
               f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"plain={r['plain_ms']:.4f} matmul={r['matmul_ms']:.4f}",
-              flush=True)
+              f"share={r['roofline_share']:.3f} plain={r['plain_ms']:.4f} "
+              f"matmul={r['matmul_ms']:.4f} route={r['route']}"
+              f"{_window_text(g)}", flush=True)
         del d, xb
     return rows_out
 
@@ -1323,11 +1384,11 @@ def kernel_table(checks, timings, launches):
          "train step, 8 clips", "library_ms"),
         ("learnable_shift_bwd", "shift.cu", "shift.py:158",
          "train step, 8 clips", "library_ms"),
-        ("action_stats", "action_mega.cu", "action_mega.py:126",
+        ("action_stats", "action_stats.cu", "action_mega.py:126",
          "forward of the served batch, 20 clips", "matmul_ms"),
         ("action_apply", "action_apply.cu", "action_mega.py:192",
          "forward of the served batch, 20 clips", "matmul_ms"),
-        ("action_prologue", "action_mega.cu", "action_fused.py:60",
+        ("action_prologue", "action_stats.cu", "action_fused.py:60",
          "forward of the served batch, 20 clips", "matmul_ms")]
     table = []
     for name, source, replaces, per, yard in kernels:
@@ -1361,6 +1422,15 @@ def kernel_table(checks, timings, launches):
             entry["launches_strip_by_path"] = {
                 p: v["action_apply_strip"] for p, v in launches.items()
                 if v.get("action_apply_strip")}
+        if name in ("action_stats", "action_prologue"):
+            entry["redesigned"] = ("one sweep with a window over T, a "
+                                   "cp.async ring, the product on the "
+                                   "tensor cores, pool summed in a fixed "
+                                   "order; the earlier kernel's time is in "
+                                   "PERF.md's kernel table")
+            entry["launches_window_by_path"] = {
+                p: v[name + "_window"] for p, v in launches.items()
+                if v.get(name + "_window")}
         entry["sites"] = [
             {k: r[k] for k in ("S", "C", "F", "sites", "ms", "plain_ms", yard,
                                "bound_ms", "bound_by", "roofline_share",
@@ -1455,7 +1525,8 @@ def main(argv=None) -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
     t0 = time.perf_counter()
-    libs = ("action_mega", "action_apply", "shift", "tsm_shift")
+    libs = ("action_mega", "action_stats", "action_apply", "shift",
+            "tsm_shift")
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         list(pool.map(lambda name: build(name, verbose=True), libs))
     for name in libs:                              # -Xptxas -v printed
@@ -1486,9 +1557,7 @@ def main(argv=None) -> int:
 
     # PR 1's path: the ACTION scorer ('mega')
     model, plain = build_models(torch, args.seed, batches[0][0])
-    served = phase("serve", serve, torch, model, batches,
-                   {"action_stats": 16, "action_apply": 16,
-                    "action_apply_strip": 16})
+    served = phase("serve", serve, torch, model, batches, MEGA_FORWARD)
     logits = compare_logits(torch, model, plain, batches[0][0])
     del plain
     prof = profile_forward(torch, model, batches[0][0])
@@ -1522,8 +1591,7 @@ def main(argv=None) -> int:
     sd_trained, _ = phase("sd_train", run_steps, torch, "sd_train",
                           sd_model, "sd", args.seed,
                           {"learnable_shift_fwd": 16,
-                           "learnable_shift_bwd": 16, "action_stats": 16,
-                           "action_apply": 16, "action_apply_strip": 16})
+                           "learnable_shift_bwd": 16, **MEGA_FORWARD})
     sd_state = {k: v.detach().clone()
                 for k, v in sd_model.state_dict().items()}
     del sd_model
@@ -1534,7 +1602,7 @@ def main(argv=None) -> int:
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
                     time_shift(torch, shk, gen) + time_tsm(torch, tk, gen) +
-                    time_prologue(torch, fused, n, gen))
+                    time_prologue(torch, fused, mega, n, gen))
     print("phase_seconds " + json.dumps(phases), flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,7 @@
-"""ACTION prologue kernel: the wrapper of ``ehgr_action_prologue`` in
-``csrc/action_mega.cu`` beside its plain PyTorch version (counterpart of
-``ehgr_tpu/ops/pallas/action_fused.py``).
+"""ACTION prologue kernel: the wrapper of ``ehgr_action_prologue_window`` in
+``csrc/action_stats.cu`` (and of ``ehgr_action_prologue`` in
+``csrc/action_mega.cu`` off the main path) beside its plain PyTorch version
+(counterpart of ``ehgr_tpu/ops/pallas/action_fused.py``).
 
   ``action_prologue(x4, w_shift, w_p3)`` — one pass over ``x [N,T,S,C]``:
       ``x_shift`` (stored), ``mc [N,T,S,1]`` (channel mean), ``pool
@@ -8,13 +9,14 @@
       (the ME squeeze before its BN).
 
 It is ``action_stats``' sweep with one more store (the same device code,
-built with ``XS = true``).  ``pool`` and ``mc`` are summed in f32 and
-divided at the end, as ``action_stats`` does; the TPU kernel summed ``pool``
-in the input dtype.
+built with ``XS = true``, on the same route, ``_stats_route``).  ``pool``
+and ``mc`` are summed in f32 and divided at the end, as ``action_stats``
+does; the TPU kernel summed ``pool`` in the input dtype.
 
 The wrapper takes the plain version for CPU tensors only; for CUDA tensors
 it launches its kernel or raises.  ``action_prologue.launches`` counts
-kernel launches (the plain path does not count).
+kernel launches (the plain path does not count), ``route_launches`` each
+route's.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from typing import Tuple
 
 import torch
 
+from ehgr_tpu_torch.ops.kernels.action_mega import (_aligned, _stats_route,
+                                                    stats_scratch)
 from ehgr_tpu_torch.ops.kernels.build import check_operands, launch, load
 from ehgr_tpu_torch.ops.temporal_shift import learnable_shift
 
@@ -51,18 +55,23 @@ def action_prologue(x4: torch.Tensor, w_shift: torch.Tensor,
     check_operands("action_prologue", x4, w_shift=w_shift, w_p3=w_p3)
     if x4.device.type == "cpu":
         return action_prologue_plain(x4, w_shift, w_p3)
-    load("action_mega")                # a failed build raises here
     cr = w_p3.shape[1]
+    route = _stats_route(x4.dtype, c, cr, _aligned(x4, w_shift, w_p3))
+    lib = "action_stats" if route == "window" else "action_mega"
+    load(lib)                          # a failed build raises here
     xs = torch.empty_like(x4)
     mc = x4.new_empty((n, t, s, 1))
     pool = x4.new_empty((n, t, c))
     x3 = x4.new_empty((n, t, s, cr))
-    acc = torch.empty((n, t, c), dtype=torch.float32, device=x4.device)
-    launch("action_mega", "ehgr_action_prologue", x4, x4.data_ptr(),
-           w_shift.data_ptr(), w_p3.data_ptr(), xs.data_ptr(), mc.data_ptr(),
-           pool.data_ptr(), x3.data_ptr(), acc.data_ptr(), n, t, s, c, cr)
+    args = (x4.data_ptr(), w_shift.data_ptr(), w_p3.data_ptr(), xs.data_ptr(),
+            mc.data_ptr(), pool.data_ptr(), x3.data_ptr(),
+            stats_scratch(x4).data_ptr(), n, t, s, c, cr)
+    launch(lib, "ehgr_action_prologue_window" if route == "window"
+           else "ehgr_action_prologue", x4, *args)
     action_prologue.launches += 1
+    action_prologue.route_launches[route] += 1
     return xs, mc, pool, x3
 
 
 action_prologue.launches = 0
+action_prologue.route_launches = dict(window=0, fma_sweep=0)

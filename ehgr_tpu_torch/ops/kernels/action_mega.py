@@ -1,6 +1,7 @@
 """ACTION two-sweep kernels: wrappers of the CUDA kernels in
-``csrc/action_mega.cu`` and ``csrc/action_apply.cu`` beside their plain
-PyTorch versions (counterpart of ``ehgr_tpu/ops/pallas/action_mega.py``).
+``csrc/action_stats.cu``, ``csrc/action_apply.cu`` and ``csrc/action_mega.cu``
+beside their plain PyTorch versions (counterpart of
+``ehgr_tpu/ops/pallas/action_mega.py``).
 
   sweep 1  ``action_stats``  — read ``x`` once, recompute the 3-tap shift and
       emit ``mc [N,T,S,1]`` (channel mean), ``pool [N,T,C]`` (spatial mean)
@@ -40,10 +41,40 @@ def action_stats_plain(x4: torch.Tensor, w_shift: torch.Tensor,
     return tuple(v.to(x4.dtype) for v in out)
 
 
+# rows of a strip in both stats kernels: pool is summed per strip of 64
+# rows, then over the strips in order
+STRIP = 64
+
+
+def _aligned(*tensors: torch.Tensor) -> bool:
+    return all(v.data_ptr() % 16 == 0 for v in tensors)
+
+
+def _stats_route(dtype: torch.dtype, c: int, cr: int, aligned: bool) -> str:
+    """The kernel that computes ``action_stats`` and ``action_prologue``, a
+    pure function of the operands: ``'window'`` (``csrc/action_stats.cu``:
+    bf16 with C % 64 == 0, Cr % 4 == 0, Cr <= 256 and x, w_shift, W_p3
+    16-byte aligned, which every ResNet-50 site meets) or ``'fma_sweep'``
+    (``csrc/action_mega.cu``: fp32, and any other bf16)."""
+    if dtype == torch.bfloat16 and aligned and c % 64 == 0 and \
+            cr % 4 == 0 and 0 < cr <= 256:
+        return "window"
+    return "fma_sweep"
+
+
+def stats_scratch(x4: torch.Tensor) -> torch.Tensor:
+    """The f32 pool partials both stats kernels write: one row of column
+    sums per 64-row strip of each frame, ``[N*T*ceil(S/64), C]``."""
+    n, t, s, c = x4.shape
+    return x4.new_empty((n * t * -(-s // STRIP), c), dtype=torch.float32)
+
+
 def action_stats(x4: torch.Tensor, w_shift: torch.Tensor, w_p3: torch.Tensor
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``x4 [N,T,S,C], w_shift [3,C], w_p3 [C,Cr]`` ->
-    ``(mc [N,T,S,1], pooled_mean [N,T,C], x3 [N,T,S,Cr])``."""
+    ``(mc [N,T,S,1], pooled_mean [N,T,C], x3 [N,T,S,Cr])``.
+    ``action_stats.route_launches`` counts the launches of each route of
+    ``_stats_route``."""
     n, t, s, c = x4.shape
     if w_shift.shape != (3, c) or w_p3.dim() != 2 or w_p3.shape[0] != c:
         raise ValueError(f"action_stats: shapes {tuple(x4.shape)}, "
@@ -51,20 +82,34 @@ def action_stats(x4: torch.Tensor, w_shift: torch.Tensor, w_p3: torch.Tensor
     check_operands("action_stats", x4, w_shift=w_shift, w_p3=w_p3)
     if x4.device.type == "cpu":
         return action_stats_plain(x4, w_shift, w_p3)
-    load("action_mega")                # a failed build raises here
     cr = w_p3.shape[1]
+    route = _stats_route(x4.dtype, c, cr, _aligned(x4, w_shift, w_p3))
+    lib = "action_stats" if route == "window" else "action_mega"
+    load(lib)                          # a failed build raises here
     mc = x4.new_empty((n, t, s, 1))
     pool = x4.new_empty((n, t, c))
     x3 = x4.new_empty((n, t, s, cr))
-    acc = torch.empty((n, t, c), dtype=torch.float32, device=x4.device)
-    launch("action_mega", "ehgr_action_stats", x4, x4.data_ptr(),
-           w_shift.data_ptr(), w_p3.data_ptr(), mc.data_ptr(),
-           pool.data_ptr(), x3.data_ptr(), acc.data_ptr(), n, t, s, c, cr)
+    args = (x4.data_ptr(), w_shift.data_ptr(), w_p3.data_ptr(),
+            mc.data_ptr(), pool.data_ptr(), x3.data_ptr(),
+            stats_scratch(x4).data_ptr(), n, t, s, c, cr)
+    launch(lib, "ehgr_action_stats_window" if route == "window"
+           else "ehgr_action_stats", x4, *args)
     action_stats.launches += 1
+    action_stats.route_launches[route] += 1
     return mc, pool, x3
 
 
 action_stats.launches = 0
+action_stats.route_launches = dict(window=0, fma_sweep=0)
+
+
+def window_grid(n: int, t: int, s: int, c: int, cr: int) -> dict:
+    """The launch of the ``'window'`` route at these sizes, as its host
+    code picks it (builds the library; for reports)."""
+    grid = (ctypes.c_int * 8)()
+    load("action_stats").ehgr_action_stats_window_grid(n, t, s, c, cr, grid)
+    return dict(zip(("blocks", "TG", "N", "strips", "frame_groups",
+                     "threads", "stages", "smem_bytes"), grid))
 
 
 # ---------------------------------------------------------------------------
@@ -85,12 +130,11 @@ def _apply_route(dtype: torch.dtype, c: int, f: int, aligned: bool) -> str:
     """The kernel that computes ``action_apply``, a pure function of the
     operands: ``'strip'`` (``csrc/action_apply.cu``: bf16 with C % 64 == 0,
     F % 8 == 0 and every vector-read operand 16-byte aligned, which every
-    ResNet-50 site meets), ``'tc_sweep'`` (the tensor-core sweep of
-    ``csrc/action_mega.cu``: the other bf16 with C % 8 == 0 and aligned
-    operands) or ``'fma_sweep'`` (fp32, and any other bf16)."""
-    if dtype != torch.bfloat16 or c % 8 or not aligned:
-        return "fma_sweep"
-    return "strip" if c % 64 == 0 and f % 8 == 0 else "tc_sweep"
+    ResNet-50 site meets) or ``'fma_sweep'`` (``csrc/action_mega.cu``:
+    fp32, and any other bf16)."""
+    if dtype == torch.bfloat16 and aligned and c % 64 == 0 and f % 8 == 0:
+        return "strip"
+    return "fma_sweep"
 
 
 def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
@@ -114,8 +158,7 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
     if x4.device.type == "cpu":
         return action_apply_plain(x4, w_shift, g1, gch, w_net)
     f = w_net.shape[1]
-    route = _apply_route(x4.dtype, c, f, all(
-        v.data_ptr() % 16 == 0 for v in (x4, w_shift, gch, w_net)))
+    route = _apply_route(x4.dtype, c, f, _aligned(x4, w_shift, gch, w_net))
     out = x4.new_empty((n, t, s, f))
     ptrs = (x4.data_ptr(), w_shift.data_ptr(), g1.data_ptr(), gch.data_ptr(),
             w_net.data_ptr(), out.data_ptr())
@@ -123,15 +166,15 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
         launch("action_apply", "ehgr_action_apply_strip", x4, *ptrs, n, t,
                s, c, f)
     else:
-        launch("action_mega", "ehgr_action_apply", x4,
-               int(route == "tc_sweep"), *ptrs, n, t, s, c, f)
+        launch("action_mega", "ehgr_action_apply", x4, *ptrs, n, t, s, c,
+               f)
     action_apply.launches += 1
     action_apply.route_launches[route] += 1
     return out
 
 
 action_apply.launches = 0
-action_apply.route_launches = dict(strip=0, tc_sweep=0, fma_sweep=0)
+action_apply.route_launches = dict(strip=0, fma_sweep=0)
 
 
 def strip_grid(rows: int, f: int) -> dict:

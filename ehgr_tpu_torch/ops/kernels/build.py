@@ -2,9 +2,10 @@
 library with a plain C interface, loaded with ``ctypes``.
 
 The library is built at first use into ``ehgr_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of its sources and flags, so an edited
-source builds anew and an unchanged one loads at once.  A failed build
-raises; nothing falls back.  Nothing here runs at import time.
+``.gitignore``), named by a hash of its source, the shared headers and the
+flags, so an edited source or header builds anew and an unchanged one loads
+at once.  A failed build raises; nothing falls back.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -31,16 +32,27 @@ _I = ctypes.c_int
 # cudaError_t of the launches)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "action_mega": {
-        # dtype, x, w, wp3, mc, pool, x3, pool_acc, n, t, s, c, cr, stream
+        # dtype, x, w, wp3, mc, pool, x3, part, n, t, s, c, cr, stream
         "ehgr_action_stats": [_I, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
-        # dtype, tc, x, w, g1, gch, wn, out, n, t, s, c, f, stream
-        "ehgr_action_apply": [_I, _I, _P, _P, _P, _P, _P, _P,
+        # dtype, x, w, g1, gch, wn, out, n, t, s, c, f, stream
+        "ehgr_action_apply": [_I, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
-        # dtype, x, w, wp3, xs, mc, pool, x3, pool_acc, n, t, s, c, cr,
-        # stream
+        # dtype, x, w, wp3, xs, mc, pool, x3, part, n, t, s, c, cr, stream
         "ehgr_action_prologue": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _P],
+    },
+    "action_stats": {
+        # dtype (bf16 only), x, w, wp3, mc, pool, x3, part, n, t, s, c, cr,
+        # stream
+        "ehgr_action_stats_window": [_I, _P, _P, _P, _P, _P, _P, _P,
+                                     _I, _I, _I, _I, _I, _P],
+        # dtype, x, w, wp3, xs, mc, pool, x3, part, n, t, s, c, cr, stream
+        "ehgr_action_prologue_window": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                        _I, _I, _I, _I, _I, _P],
+        # n, t, s, c, cr, int[8] out: blocks, TG, N, strips, frame groups,
+        # threads, stages, shared memory bytes
+        "ehgr_action_stats_window_grid": [_I, _I, _I, _I, _I, _P],
     },
     "action_apply": {
         # dtype (bf16 only), x, w, g1, gch, wn, out, n, t, s, c, f, stream
@@ -82,8 +94,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes())
+    """Where ``csrc/<name>.cu`` builds to: named by a hash of the source,
+    every shared header of ``csrc/`` (``*.cuh``, which a source may
+    include) and the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -20,7 +20,7 @@ from ehgr_tpu_torch.ops.action import ActionConv
 from ehgr_tpu_torch.ops.kernels import action_fused as fused
 from ehgr_tpu_torch.ops.kernels import action_mega as mega
 
-from test_torch_action_mega import _np, _pair, _t
+from test_torch_action_mega import _launch_on_cuda, _np, _pair, _t
 
 N, T, H, W, C = 2, 4, 8, 8, 32
 F = 16
@@ -91,6 +91,22 @@ class TestWrapper:
         for g, w in zip(got, want):
             assert g.dtype == torch.bfloat16
             torch.testing.assert_close(g, w.to(torch.bfloat16))
+
+    @pytest.mark.parametrize("dtype,offset,cr,want", [
+        (torch.bfloat16, 0, 4, "window"), (torch.bfloat16, 1, 4, "fma_sweep"),
+        (torch.bfloat16, 0, 6, "fma_sweep"), (torch.float32, 0, 4,
+                                              "fma_sweep")])
+    def test_launches_the_route_and_counts_it(self, monkeypatch, dtype,
+                                              offset, cr, want):
+        """On a CUDA tensor ``action_prologue`` launches the entry point of
+        ``action_stats``' route (``_stats_route``: a misaligned ``x4`` view
+        or Cr % 4 != 0 leaves the window kernel) and counts it."""
+        calls, moved = _launch_on_cuda(monkeypatch, fused.action_prologue,
+                                       dtype, offset, cr=cr)
+        assert calls == [("action_stats", "ehgr_action_prologue_window")
+                         if want == "window"
+                         else ("action_mega", "ehgr_action_prologue")]
+        assert moved == {k: int(k == want) for k in moved}
 
     @pytest.mark.parametrize("bad", ["dtype", "shape", "contiguity"])
     def test_refuses_bad_operands(self, rng, bad):

@@ -19,6 +19,7 @@ from ehgr_tpu.ops.action import TSMConv as JTSMConv
 from ehgr_tpu.ops.pallas import action_mega as jmega
 from ehgr_tpu_torch.models.convert import state_dict_from_jax
 from ehgr_tpu_torch.ops.action import ActionConv, ActionGate, TSMConv
+from ehgr_tpu_torch.ops.kernels import action_fused as fused
 from ehgr_tpu_torch.ops.kernels import action_mega as mega
 from ehgr_tpu_torch.ops.kernels import build
 
@@ -52,10 +53,12 @@ def _apply_inputs(rng, n, t, s, c, f):
 
 
 class TestPlainVersusPallas:
-    @pytest.mark.parametrize("n,t,s,c", [(N, T, H * W, C), (1, 4, 1000, 128)])
+    @pytest.mark.parametrize("n,t,s,c", [(N, T, H * W, C), (1, 4, 1000, 128),
+                                         (2, 5, 49, 64)])
     def test_stats(self, rng, n, t, s, c):
         """(1, 4, 1000, 128): an S the Pallas kernel tiles with a masked
-        partial block (tests/test_action_mega.py)."""
+        partial block (tests/test_action_mega.py); (2, 5, 49, 64): T = 5,
+        off every frame group of the window kernel, at a 7^2 frame."""
         args = _stats_inputs(rng, n, t, s, c)
         want = jmega.action_stats(*map(jnp.asarray, args), interpret=True)
         got = mega.action_stats_plain(*map(_t, args))
@@ -134,6 +137,30 @@ class TestWrappers:
         strip = build.library_path("action_apply")
         assert strip.parent == build.BUILD_DIR and strip != path
         assert "ehgr_action_apply_strip" in build.SIGNATURES["action_apply"]
+        window = build.library_path("action_stats")
+        assert window.name.startswith("libaction_stats-")
+        assert window not in (path, strip)
+        assert "ehgr_action_stats_window" in build.SIGNATURES["action_stats"]
+
+    def test_library_name_follows_the_shared_header(self, monkeypatch,
+                                                   tmp_path):
+        """Every library's name hashes the headers of ``csrc/`` too: an
+        edit to the shared header builds each source anew, an edit to a
+        source only that source's library."""
+        for f in build.CSRC.iterdir():
+            (tmp_path / f.name).write_bytes(f.read_bytes())
+        monkeypatch.setattr(build, "CSRC", tmp_path)
+        names = ("action_mega", "action_stats", "action_apply")
+        before = {k: build.library_path(k) for k in names}
+        header = tmp_path / "action_common.cuh"
+        header.write_text(header.read_text() + "\n// edited\n")
+        after = {k: build.library_path(k) for k in names}
+        assert all(after[k] != before[k] for k in names)
+        src = tmp_path / "action_stats.cu"
+        src.write_text(src.read_text() + "\n// edited\n")
+        again = {k: build.library_path(k) for k in names}
+        assert again["action_stats"] != after["action_stats"]
+        assert again["action_mega"] == after["action_mega"]
 
 
 # (S, C, F) of the 16 ACTION sites of ResNet-50 at 224^2
@@ -149,8 +176,8 @@ class TestApplyRoute:
 
     @pytest.mark.parametrize("dtype,c,f,aligned,want", [
         (torch.float32, 256, 64, True, "fma_sweep"),
-        (torch.bfloat16, 96, 64, True, "tc_sweep"),     # C % 64 != 0
-        (torch.bfloat16, 256, 60, True, "tc_sweep"),    # F % 8 != 0
+        (torch.bfloat16, 96, 64, True, "fma_sweep"),    # C % 64 != 0
+        (torch.bfloat16, 256, 60, True, "fma_sweep"),   # F % 8 != 0
         (torch.bfloat16, 256, 64, False, "fma_sweep"),  # misaligned
         (torch.bfloat16, 100, 24, True, "fma_sweep")])  # C % 8 != 0
     def test_other_operands_keep_the_sweeps(self, dtype, c, f, aligned,
@@ -185,6 +212,61 @@ class TestApplyRoute:
         after = mega.action_apply.route_launches
         assert {k: after[k] - before[k] for k in after} == {
             k: int(k == want) for k in after}
+
+
+def _launch_on_cuda(monkeypatch, wrapper, dtype, offset, c=64, cr=4):
+    """Call ``wrapper(x4, w_shift, w_p3)`` on CPU tensors that report
+    ``cuda:0`` (``x4`` a view ``offset`` elements into its storage) with
+    ``launch`` recorded instead of run (and nothing built); returns the (library, entry point)
+    it launched and the change of ``wrapper.route_launches``."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    for mod in (mega, fused):
+        monkeypatch.setattr(mod, "load", lambda lib: None)
+        monkeypatch.setattr(mod, "launch",
+                            lambda lib, fn, x4, *a: calls.append((lib, fn)))
+    n, t, s = 1, 2, 3
+
+    def cuda(*shape, extra=0):
+        base = torch.randn(extra + int(np.prod(shape))).to(dtype)
+        return torch.Tensor._make_subclass(_OnCuda,
+                                           base[extra:].view(shape))
+    before = dict(wrapper.route_launches)
+    wrapper(cuda(n, t, s, c, extra=offset), cuda(3, c), cuda(c, cr))
+    after = wrapper.route_launches
+    return calls, {k: after[k] - before[k] for k in after}
+
+
+class TestStatsRoute:
+    @pytest.mark.parametrize("s,c,f", RESNET50_SITES)
+    def test_every_site_takes_the_window_kernel(self, s, c, f):
+        assert mega._stats_route(torch.bfloat16, c, c // 16, True) == \
+            "window"
+
+    @pytest.mark.parametrize("dtype,c,cr,aligned", [
+        (torch.float32, 256, 16, True),
+        (torch.bfloat16, 96, 6, True),        # C % 64 != 0
+        (torch.bfloat16, 256, 6, True),       # Cr % 4 != 0
+        (torch.bfloat16, 4096, 512, True),    # Cr > 256
+        (torch.bfloat16, 256, 16, False)])    # misaligned
+    def test_other_operands_take_the_fma_sweep(self, dtype, c, cr,
+                                               aligned):
+        assert mega._stats_route(dtype, c, cr, aligned) == "fma_sweep"
+
+    @pytest.mark.parametrize("dtype,offset,want", [
+        (torch.bfloat16, 0, "window"), (torch.bfloat16, 1, "fma_sweep"),
+        (torch.float32, 0, "fma_sweep")])
+    def test_wrapper_launches_the_route_and_counts_it(self, monkeypatch,
+                                                      dtype, offset, want):
+        """On a CUDA tensor ``action_stats`` launches the entry point of
+        its route (a misaligned ``x4`` view leaves the window kernel) and
+        counts the launch under that route."""
+        calls, moved = _launch_on_cuda(monkeypatch, mega.action_stats,
+                                       dtype, offset)
+        assert calls == [("action_stats", "ehgr_action_stats_window")
+                         if want == "window"
+                         else ("action_mega", "ehgr_action_stats")]
+        assert moved == {k: int(k == want) for k in moved}
 
 
 def _randomized(variables, rng):

@@ -110,13 +110,15 @@ def _cuda(*shape):
 
 @pytest.mark.parametrize("kernel", ["learnable_shift_fwd",
                                     "learnable_shift_bwd", "action_stats",
-                                    "action_apply", "action_apply_strip",
-                                    "action_prologue", "tsm_shift"])
+                                    "action_stats_window", "action_apply",
+                                    "action_apply_strip", "action_prologue",
+                                    "action_prologue_window", "tsm_shift"])
 def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     """A CUDA operand and a kernel that does not build: the wrapper raises
     the build's error; it neither runs the plain version nor counts.
     ``action_apply_strip``: ``action_apply`` on bf16 operands of its main
-    path's route (``csrc/action_apply.cu``)."""
+    path's route (``csrc/action_apply.cu``); ``action_stats_window`` /
+    ``action_prologue_window`` the same for ``csrc/action_stats.cu``."""
     n, t, s, c, f = 1, 2, 3, 16, 8
 
     def strip(*shape):
@@ -134,12 +136,18 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
                                    strip(64, f)),
             "action_prologue": (_cuda(n, t, s, c), _cuda(3, c),
                                 _cuda(c, 1)),
+            "action_stats_window": (strip(n, t, s, 64), strip(3, 64),
+                                    strip(64, 4)),
+            "action_prologue_window": (strip(n, t, s, 64), strip(3, 64),
+                                       strip(64, 4)),
             "tsm_shift": (_cuda(n, t, s, c), 8)}[kernel]
     mod = {"learnable_shift_fwd": shift, "learnable_shift_bwd": shift,
            "action_stats": action_mega, "action_apply": action_mega,
            "action_apply_strip": action_mega,
-           "action_prologue": action_fused, "tsm_shift": tsm_shift}[kernel]
-    kernel = kernel.replace("_strip", "")
+           "action_prologue": action_fused, "tsm_shift": tsm_shift,
+           "action_stats_window": action_mega,
+           "action_prologue_window": action_fused}[kernel]
+    kernel = kernel.replace("_strip", "").replace("_window", "")
 
     def failed_build(name, verbose=False):
         raise RuntimeError(f"nvcc failed on {name}")
