@@ -64,6 +64,33 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo,
 
 // D[64 x N] += A[64 x 16] (K-major, shared) * B[16 x N] (MN-major, shared,
 // imm-trans-b = 1); f32 accumulators, N/2 a thread
+__device__ __forceinline__ void wgmma_n16(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_n32(float* d, uint64_t da, uint64_t db,
+                                          int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 __device__ __forceinline__ void wgmma_n64(float* d, uint64_t da, uint64_t db,
                                           int scale_d) {
   asm volatile(
@@ -179,7 +206,9 @@ __device__ __forceinline__ void wgmma_n256(float* d, uint64_t da, uint64_t db,
 template <int BN>
 __device__ __forceinline__ void wgmma_tile(float* d, uint64_t da,
                                            uint64_t db, int scale_d) {
-  if constexpr (BN == 64) wgmma_n64(d, da, db, scale_d);
+  if constexpr (BN == 16) wgmma_n16(d, da, db, scale_d);
+  else if constexpr (BN == 32) wgmma_n32(d, da, db, scale_d);
+  else if constexpr (BN == 64) wgmma_n64(d, da, db, scale_d);
   else if constexpr (BN == 128) wgmma_n128(d, da, db, scale_d);
   else wgmma_n256(d, da, db, scale_d);
 }

@@ -40,11 +40,10 @@
 //     next to this one (T = 8: 1.25 reads at TG = 4, 1.75 at 2, 2.75 at 1).
 //   * 256 threads and at most ~113 KB of shared memory a block, so two
 //     blocks share an SM and one's loads overlap the other's build; where
-//     the grid is too small for that (7^2: 160 blocks) one block an SM
-//     with a ring of up to four stages.  The host picks TG per site: the
-//     largest of 4 / 2 / 1 (capped by the accumulators, 32 f32 a thread
-//     below Cr = 256) that gives two waves of two blocks an SM on the 132
-//     SMs.
+//     the grid has fewer blocks than SMs, one block an SM with a ring of
+//     up to four stages.  The host picks TG per site: the largest of 4 / 2
+//     / 1 under a cap (4 at Cr <= 16, 2 at Cr <= 64, 1 above: registers,
+//     as measured in PERF.md) that still gives two blocks an SM.
 //   * The build: warp w owns channels 8w .. 8w+7 of the chunk, lane l the
 //     rows l and l + 32, and walks its two vectors through the TG frames:
 //     x[t-1], x[t], x[t+1] in registers, the f32 shift, one rounding to
@@ -59,9 +58,12 @@
 //     columns), so a thread holds no more accumulators than Cr needs.
 //     W_p3 [C, Cr] keeps Cr contiguous: its chunk rides the ring as
 //     64-column atoms (16-byte copies; 8-byte ones at Cr = 4, whose rows
-//     are 8 bytes) and the product reads it MN-major.  A warpgroup
-//     multiplies the A tiles of TG/2 frames (at TG = 1: half the columns
-//     of the one frame) by it and keeps the accumulators in registers.
+//     are 8 bytes).  A warpgroup multiplies the A tiles of TG/2 frames (at
+//     TG = 1 and N >= 128: half the columns of the one frame) by it with
+//     4 x wgmma m64nNk16 a chunk, B read MN-major through the transpose
+//     bit (as in csrc/action_apply.cu), the accumulators in registers; the
+//     product of chunk k runs while the sums of chunk k are written and
+//     the loads of chunk k + 1 land.
 //   * pool in a fixed order, with no atomics: one f32 row of partials
 //     [N*T*strips, C] per strip and frame; pool_reduce
 //     (csrc/action_common.cuh) sums the strips in order and divides by S.
@@ -82,11 +84,11 @@ constexpr int kThreads = 256;           // two warpgroups
 constexpr int kMaxStages = 4;
 constexpr int kSmemSM = 233472;         // shared memory of an SM
 constexpr int kSMs = 132;
-constexpr int kMinBlocks = 4 * kSMs;    // two waves of two blocks an SM
+constexpr int kMinBlocks = 2 * kSMs;    // two blocks an SM
 // the (TG, N) the kernel is built for: every TG under the cap of its N
 #define EHGR_STATS_SHAPES(X)                                               \
-  X(4, 16) X(2, 16) X(1, 16) X(4, 32) X(2, 32) X(1, 32) X(2, 64) X(1, 64) \
-  X(1, 128) X(1, 256)
+  X(4, 16) X(2, 16) X(1, 16) X(2, 32) X(1, 32) X(2, 64) X(1, 64) X(1, 128) \
+  X(1, 256)
 
 // One ring stage (every tile 1024-byte aligned): the TG + 2 frame tiles and
 // the W_p3 tile, MN-major as W_p3 lies in memory: 64-column atoms of 64
@@ -94,9 +96,10 @@ constexpr int kMinBlocks = 4 * kSMs;    // two waves of two blocks an SM
 template <int TG, int N>
 struct Cfg {
   // warpgroup g multiplies frames g*kFPW .. g*kFPW + kFPW-1 by all N
-  // columns; at TG = 1 and N >= 32 both take frame 0, warpgroup g columns
-  // g*N/2 .. (at TG = 1, N = 16 warpgroup 1 has no frame)
-  static constexpr bool kSplit = TG == 1 && N >= 32;
+  // columns; at TG = 1 and N >= 128 both take frame 0, warpgroup g the
+  // columns g*N/2 .. (whole 64-column atoms of the W_p3 tile); at TG = 1
+  // and N <= 64 warpgroup 1 has no frame
+  static constexpr bool kSplit = TG == 1 && N >= 128;
   static constexpr int kFPW = TG >= 2 ? TG / 2 : 1;
   static constexpr int kNW = kSplit ? N / 2 : N;   // columns a warpgroup
   static constexpr int kWTile = BK * (N < 64 ? 64 : N) * 2;
@@ -107,7 +110,6 @@ struct Cfg {
   }
   static_assert(TG == 1 || TG == 2 || TG == 4, "TG is 1, 2 or 4");
   static_assert(kFPW * kNW / 2 <= 64, "at most 64 accumulators a thread");
-  static_assert(kNW % 16 == 0, "n16 steps");
   static_assert(8 * TG * BM * 4 <= kStage, "the mc sums fit in a stage");
 };
 
@@ -117,22 +119,6 @@ __device__ __forceinline__ void cp_async_wait_n(int n) {
   else if (n == 1) cp_async_wait<1>();
   else if (n == 2) cp_async_wait<2>();
   else cp_async_wait<3>();
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, "
-               "[%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-// D[16 x 8] += A[16 x 16] * B[16 x 8], bf16 in, f32 accumulators
-__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-               "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
-                 "r"(b1));
 }
 
 // byte offset of element (row r, channel k) of an A tile: 128-byte rows,
@@ -145,13 +131,6 @@ __device__ __forceinline__ int kmajor(int r, int k) {
 __device__ __forceinline__ int w_offset(int k, int col) {
   return (col / 64) * (BK * 128) + kmajor(k, col % 64);
 }
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t* r) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-               "{%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
 template <int TG, int N, bool XS>
 __global__ void __launch_bounds__(kThreads, 2)
 stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
@@ -235,11 +214,34 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
     }
   };
 
-  float acc[kFPW][kNW / 2];
+  // pool: frame f's 8 column sums over the warp's 64 rows, reduced and
+  // scattered over the lanes (9 shuffles): lane l ends with channel
+  // 4*b4 + 2*b3 + b2 of its bits, and one of each 4 lanes writes it
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
+  auto pool_write = [&](int kc, int f, const float* col) {
+    float a4[4], a2[2];
 #pragma unroll
-  for (int i = 0; i < kFPW; ++i)
+    for (int i = 0; i < 4; ++i)
+      a4[i] = (h16 ? col[i + 4] : col[i]) +
+              __shfl_xor_sync(0xffffffffu, h16 ? col[i] : col[i + 4], 16);
 #pragma unroll
-    for (int j = 0; j < kNW / 2; ++j) acc[i][j] = 0.f;
+    for (int i = 0; i < 2; ++i)
+      a2[i] = (h8 ? a4[i + 2] : a4[i]) +
+              __shfl_xor_sync(0xffffffffu, h8 ? a4[i] : a4[i + 2], 8);
+    float a1 = (h4 ? a2[1] : a2[0]) +
+               __shfl_xor_sync(0xffffffffu, h4 ? a2[0] : a2[1], 4);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, 2);
+    a1 += __shfl_xor_sync(0xffffffffu, a1, 1);
+    if (lane % 4 == 0 && t0 + f < tlen)
+      part[(((size_t)n * tlen + t0 + f) * nst + strip) * C + kc * BK +
+           c8 * 8 + 4 * h16 + 2 * h8 + h4] = a1;
+  };
+  // TG = 4 reduces each frame as it is built (registers); fewer frames
+  // reduce after the barrier, their chains interleaved, while the product
+  // runs
+  constexpr bool kPoolEarly = TG >= 4;
+
+  float acc[kFPW][kNW / 2];             // a frame's first wgmma sets them
   float msum[2][TG];                   // this thread's 8-channel row sums
 #pragma unroll
   for (int h = 0; h < 2; ++h)
@@ -257,7 +259,9 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
   }
   const int wg = warp / 4, q = warp % 4;
   for (int kc = 0; kc < kt; ++kc) {
-    __syncthreads();                   // chunk kc - 1's slot is spent
+    wgmma_wait<0>();                   // product kc - 1 is done ...
+    __syncthreads();                   // ... in both warpgroups: its slot is
+                                       // spent
     if (kc + stages - 1 < kt) load_chunk(kc + stages - 1);
     cp_async_commit();
     const uint4 tw0 = tn0, tw1 = tn1, tw2 = tn2;
@@ -279,11 +283,11 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
       cur[h] = *reinterpret_cast<const uint4*>(stg + kTile + bo +
                                                h * 32 * 128);
     }
+    float col[TG][8];                  // per frame: its channels' sums
 #pragma unroll
     for (int f = 0; f < TG; ++f) {
-      float col[8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) col[i] = 0.f;
+      for (int i = 0; i < 8; ++i) col[f][i] = 0.f;
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int o = bo + h * 32 * 128;
@@ -304,37 +308,44 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
           word(res, i) = pack2(v0, v1);
           rs += v0;
           rs += v1;
-          col[2 * i] += v0;
-          col[2 * i + 1] += v1;
+          col[f][2 * i] += v0;
+          col[f][2 * i + 1] += v1;
         }
         *reinterpret_cast<uint4*>(stg + f * kTile + o) = res;  // over t-1
         msum[h][f] += rs;
         prev[h] = cur[h];
         cur[h] = nx;
       }
-      // pool: the 8 column sums over the warp's 64 rows, reduced and
-      // scattered over the lanes (9 shuffles): lane l ends with channel
-      // 4*b4 + 2*b3 + b2 of its bits
-      float a4[4], a2[2];
-      const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4;
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        a4[i] = (h16 ? col[i + 4] : col[i]) +
-                __shfl_xor_sync(0xffffffffu, h16 ? col[i] : col[i + 4], 16);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        a2[i] = (h8 ? a4[i + 2] : a4[i]) +
-                __shfl_xor_sync(0xffffffffu, h8 ? a4[i] : a4[i + 2], 8);
-      float a1 = (h4 ? a2[1] : a2[0]) +
-                 __shfl_xor_sync(0xffffffffu, h4 ? a2[0] : a2[1], 4);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, 2);
-      a1 += __shfl_xor_sync(0xffffffffu, a1, 1);
-      if (lane % 4 == 0 && t0 + f < tlen)
-        part[(((size_t)n * tlen + t0 + f) * nst + strip) * C +
-             kc * BK + c8 * 8 + 4 * h16 + 2 * h8 + h4] = a1;
+      if constexpr (kPoolEarly) pool_write(kc, f, col[f]);
     }
     fence_proxy_async();
     __syncthreads();                   // A tiles complete
+
+    // the product: each warpgroup's frames (64 rows each) by the W_p3
+    // tile, 4 x wgmma m64nNk16, B MN-major through the transpose bit
+    const uint32_t stage_u = sbase + (kc % stages) * L::kStage;
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < kFPW; ++i) {
+      // no branch around wgmma (it would serialize them): a frame past T
+      // is multiplied and not stored, and at TG = 1, N <= 64 warpgroup 1
+      // repeats frame 0's product and stores nothing
+      const int f = L::kSplit || wg * kFPW + i >= TG ? 0 : wg * kFPW + i;
+      const uint32_t at = stage_u + f * kTile;
+      const uint32_t wt = stage_u + L::kW + (L::kSplit ? wg * kNW / 64 : 0) *
+                                                (BK * 128);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_tile<kNW>(acc[i], desc_sw128(at + kk * 32, 16, 1024),
+                        desc_sw128(wt + kk * 16 * 128, BK * 128, 1024),
+                        kc > 0 || kk > 0);
+    }
+    wgmma_commit();
+
+    if constexpr (!kPoolEarly) {       // while the product runs
+#pragma unroll
+      for (int f = 0; f < TG; ++f) pool_write(kc, f, col[f]);
+    }
 
     if (XS) {                          // x_shift: the A tiles, coalesced
 #pragma unroll
@@ -352,35 +363,16 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
         }
       }
     }
-
-    // the product: this warp's 16 rows of its warpgroup's frames
-    const uint32_t stage_u = sbase + (kc % stages) * L::kStage;
-#pragma unroll
-    for (int i = 0; i < kFPW; ++i) {
-      const int f = L::kSplit ? 0 : wg * kFPW + i;
-      const int nb = L::kSplit ? wg * kNW : 0;      // first column
-      if (f >= TG || t0 + f >= tlen) continue;
-      const uint32_t at = stage_u + f * kTile;
-#pragma unroll
-      for (int kk = 0; kk < BK / 16; ++kk) {
-        uint32_t a[4];
-        const int ar = q * 16 + lane % 16, ak = kk * 2 + lane / 16;
-        ldsm_x4(at + kmajor(ar, ak * 8), a);
-#pragma unroll
-        for (int n16 = 0; n16 < kNW / 16; ++n16) {
-          uint32_t b[4];             // k-halves 0 / 1 of columns n16*16 ..
-          const int k = kk * 16 + lane % 8 + 8 * (lane / 8 % 2);
-          const int cb = nb + n16 * 16 + 8 * (lane / 16);
-          ldsm_x4_trans(stage_u + L::kW + w_offset(k, cb), b);
-          mma16816(&acc[i][(2 * n16) * 4], a, b[0], b[1]);
-          mma16816(&acc[i][(2 * n16 + 1) * 4], a, b[2], b[3]);
-        }
-      }
-    }
   }
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < kFPW; ++i)
+#pragma unroll
+    for (int j = 0; j < kNW / 2; ++j) fence_operand(acc[i][j]);
 
   // x3: accumulator d[n8*4 + 2h + e] is row 16q + lane/4 + 8h, column
-  // n8*8 + 2*(lane%4) + e of the warpgroup's frame and columns
+  // n8*8 + 2*(lane%4) + e of the warpgroup's frame and columns (q: the
+  // warp in its warpgroup)
 #pragma unroll
   for (int i = 0; i < kFPW; ++i) {
     const int f = L::kSplit ? 0 : wg * kFPW + i;
@@ -433,7 +425,7 @@ template <int TG, int N>
 void fill(int kt, Geo* g) {
   // two blocks an SM where the grid has the blocks for it, so that one's
   // loads overlap the other's build; else one block with a deeper ring
-  const int per_sm = g->blocks >= 2 * kSMs ? 2 : 1;
+  const int per_sm = g->blocks >= kSMs ? 2 : 1;
   const int budget = kSmemSM / per_sm - 1024;    // 1 KB an SM keeps a block
   g->threads = kThreads;
   g->stages = kt < kMaxStages ? kt : kMaxStages;
@@ -443,14 +435,14 @@ void fill(int kt, Geo* g) {
 }
 
 // N = Cr rounded up to 16 / 32 / 64 / 128 / 256; TG the largest of 4 / 2
-// / 1 under the accumulator cap (4 at N <= 32, 2 at 64, 1 above) that gives
-// at least kMinBlocks blocks, and no larger than T needs.
+// / 1 under the cap (4 at N = 16, 2 at 32 and 64, 1 above) that gives at
+// least kMinBlocks blocks, and no larger than T needs.
 void geometry(int n, int t, int s, int c, int cr, Geo* g) {
   g->nn = cr <= 16 ? 16 : cr <= 32 ? 32 : cr <= 64 ? 64 : cr <= 128 ? 128
                                                                    : 256;
   g->nst = (s + BM - 1) / BM;
   const long long strips = (long long)n * g->nst;
-  int tg = g->nn <= 32 ? 4 : g->nn == 64 ? 2 : 1;
+  int tg = g->nn == 16 ? 4 : g->nn <= 64 ? 2 : 1;
   while (tg > 1 && (tg >= 2 * t ||
                     strips * ((t + tg - 1) / tg) < kMinBlocks))
     tg /= 2;
