@@ -233,6 +233,22 @@ __device__ __forceinline__ uint32_t pack2(float a, float b) {
   return w;
 }
 
+// 8 bf16 <-> 8 f32 (round to nearest even)
+__device__ __forceinline__ void unpack8(const uint4& v, float* f) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 p = bf2(word(v, i));
+    f[2 * i] = p.x;
+    f[2 * i + 1] = p.y;
+  }
+}
+__device__ __forceinline__ uint4 pack8(const float* f) {
+  uint4 v;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) word(v, i) = pack2(f[2 * i], f[2 * i + 1]);
+  return v;
+}
+
 __device__ __forceinline__ uint4 ldg16(const bf16* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }

@@ -46,8 +46,9 @@
 //     as measured in PERF.md) that still gives two blocks an SM.
 //   * The build: warp w owns channels 8w .. 8w+7 of the chunk, lane l the
 //     rows l and l + 32, and walks its two vectors through the TG frames:
-//     x[t-1], x[t], x[t+1] in registers, the f32 shift, one rounding to
-//     bf16, stored in place over x[t-1] (no thread reads that vector
+//     x[t-1], x[t], x[t+1] in registers as f32 (each vector converted
+//     once, the taps once a chunk), the f32 shift, one rounding to bf16,
+//     stored in place over x[t-1] (no thread reads that vector
 //     again), which leaves the A tile of frame t0+i in slot i, in the
 //     128-byte-swizzled K-major layout the product reads.  The same pass
 //     sums the f32 values: per frame its 8 channels over the warp's 64
@@ -276,12 +277,18 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
 
     // build: the A tiles of the TG frames in place, and the sums
     uint8_t* stg = smem + (kc % stages) * L::kStage;
-    uint4 prev[2], cur[2];
+    // the window in f32: each x vector is converted once, the taps once a
+    // chunk
+    float pf[2][8], cf[2][8], a0[8], a1[8], a2[8];
+    unpack8(tw0, a0);
+    unpack8(tw1, a1);
+    unpack8(tw2, a2);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      prev[h] = *reinterpret_cast<const uint4*>(stg + bo + h * 32 * 128);
-      cur[h] = *reinterpret_cast<const uint4*>(stg + kTile + bo +
-                                               h * 32 * 128);
+      unpack8(*reinterpret_cast<const uint4*>(stg + bo + h * 32 * 128),
+              pf[h]);
+      unpack8(*reinterpret_cast<const uint4*>(stg + kTile + bo +
+                                              h * 32 * 128), cf[h]);
     }
     float col[TG][8];                  // per frame: its channels' sums
 #pragma unroll
@@ -291,30 +298,22 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int o = bo + h * 32 * 128;
-        const uint4 nx =
-            *reinterpret_cast<const uint4*>(stg + (f + 2) * kTile + o);
-        uint4 res;
+        float nf[8], v[8];
+        unpack8(*reinterpret_cast<const uint4*>(stg + (f + 2) * kTile + o),
+                nf);
         float rs = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {    // one bf16 pair at a time
-          const float2 c = bf2(word(cur[h], i)), pv = bf2(word(prev[h], i)),
-                       nv = bf2(word(nx, i)), a0 = bf2(word(tw0, i)),
-                       a1 = bf2(word(tw1, i)), a2 = bf2(word(tw2, i));
-          float v0 = a1.x * c.x, v1 = a1.y * c.y;
-          v0 += a0.x * pv.x;
-          v1 += a0.y * pv.y;
-          v0 += a2.x * nv.x;
-          v1 += a2.y * nv.y;
-          word(res, i) = pack2(v0, v1);
-          rs += v0;
-          rs += v1;
-          col[f][2 * i] += v0;
-          col[f][2 * i + 1] += v1;
+        for (int i = 0; i < 8; ++i) {
+          v[i] = a1[i] * cf[h][i];
+          v[i] += a0[i] * pf[h][i];
+          v[i] += a2[i] * nf[i];
+          rs += v[i];
+          col[f][i] += v[i];
+          pf[h][i] = cf[h][i];
+          cf[h][i] = nf[i];
         }
-        *reinterpret_cast<uint4*>(stg + f * kTile + o) = res;  // over t-1
+        *reinterpret_cast<uint4*>(stg + f * kTile + o) = pack8(v);  // t-1
         msum[h][f] += rs;
-        prev[h] = cur[h];
-        cur[h] = nx;
       }
       if constexpr (kPoolEarly) pool_write(kc, f, col[f]);
     }
