@@ -46,14 +46,16 @@ Phases; any miss raises and the run exits nonzero:
    (``'vjp'``: 16 launches of each of the four kernels a step), and one
    fp32 SD step of both models against a float64 run;
 9. deploy, Stage 2: the trained ``tsn_sd`` through the 4-head scorer in
-   modes ``'prologue'`` (16 ``action_prologue`` launches a forward) and
-   ``'mega'``, the four heads against the plain model; ``tsn_middle1/2/3``
+   modes ``'prologue'`` (16 ``action_prologue`` launches a forward, all on
+   its window kernel; one call traced) and ``'mega'``, the four heads
+   against the plain model; ``tsn_middle1/2/3``
    loaded with ``merge_state_dict`` ('prologue': 3 / 7 / 13 launches), each
    against the SD model's exit;
 10. time each kernel, its plain version and a yardstick (the bare GEMM of
    the same ``[rows, C] x [C, F]`` (or ``x @ W_p3``) product for the ACTION
    kernels, the grouped ``conv3d`` and its backward for the learnable
-   shift; none for the TSM shift) at each site shape with CUDA events.
+   shift; none for the TSM shift) at each site shape with CUDA events,
+   each ACTION kernel beside its route and launch grid.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
@@ -523,15 +525,15 @@ def compare_logits(torch, mega_model, plain, frames):
     return out
 
 
-def profile_forward(torch, model, frames):
+def profile_forward(torch, model, frames, heads=1, name="profile"):
     """Device time by kernel name over one scorer call (torch.profiler),
     beside the call's wall time."""
     from ehgr_tpu_torch.eval.inference import make_score_fn
 
     score = make_score_fn(model, device="cuda", crop_size=CROP,
-                          dtype_name="bfloat16")
+                          dtype_name="bfloat16", heads=heads)
     out = _device_profile(torch, lambda: score(frames))
-    print("profile " + json.dumps(out), flush=True)
+    print(f"{name} " + json.dumps(out), flush=True)
     return out
 
 
@@ -989,7 +991,8 @@ def sd_deploy(torch, seed, trained, batches):
     """The Stage-2 deploys from the trained ``tsn_sd`` weights (BN
     statistics then set from the first batch on the plain path, as for the
     other scorers): the 4-head scorer in modes 'prologue' and 'mega' over
-    the request batches with launch counts, and ``tsn_middle1/2/3``
+    the request batches with launch counts (one 'prologue' call traced),
+    and ``tsn_middle1/2/3``
     ('prologue'), loaded with ``merge_state_dict``, with 3 / 7 / 13
     launches in a bf16 forward.  Compared over the clips of all request
     batches, each against the plain model in fp32.  fp32: both modes'
@@ -1031,7 +1034,10 @@ def sd_deploy(torch, seed, trained, batches):
                                    PROLOGUE_FORWARD, "sd_serve_prologue",
                                    heads=4),
            "serve_mega": serve(torch, models["mega"], batches, MEGA_FORWARD,
-                               "sd_serve_mega", heads=4)}
+                               "sd_serve_mega", heads=4),
+           "profile_prologue": profile_forward(
+               torch, models["prologue"], batches[0][0], 4,
+               "sd_profile_prologue")}
 
     with torch.inference_mode():
         outs = {(dname, mode): run(m, dname)

@@ -5,7 +5,8 @@
 // Replaces the TPU kernel action_apply of ehgr_tpu/ops/pallas/action_mega.py
 // (_apply_kernel, pallas_call at :209) on the main path: bf16 with C % 64 ==
 // 0, F % 8 == 0 and 16-byte aligned operands, which every ResNet-50 ACTION
-// site meets (other shapes and fp32 keep the sweeps of csrc/action_mega.cu):
+// site meets (other shapes and fp32 take the FMA sweep of
+// csrc/action_mega.cu):
 //     out = (x_shift * (g1[row] + gch[n,t,:])) @ W_net          [N*T*S, F]
 //     x_shift[t] = w0*x[t-1] + w1*x[t] + w2*x[t+1]   (zero at clip edges)
 // with the TPU kernel's rounding points: shift and gate in f32, one rounding
@@ -68,7 +69,6 @@
 //   * One block per SM at BN >= 128: (49, 2048, 512) at 20 clips has 62
 //     strips x 2 column blocks, 124 blocks for 132 SMs (chip_smoke.py
 //     prints the grid of each site).
-//   * pool and atomics are action_stats' business, not this kernel's.
 
 #include "action_common.cuh"
 

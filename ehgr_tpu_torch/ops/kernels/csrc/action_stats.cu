@@ -32,18 +32,19 @@
 //     / 20 strips at 56^2 / 28^2 / 14^2 / 7^2, against 980 / 245 / 62 /
 //     16).
 //   * K runs in 64-channel chunks (128 bytes: one 128-byte swizzle row).
-//     A ring brings each chunk's TG + 2 frame tiles (t0-1 ..
-//     t0+TG; frames outside the clip are zero-filled, not read) by
-//     cp.async, 8 lanes to a row's 128 bytes.  So
-//     x is read (TG+2)/TG times from L2 but about once from memory: the
-//     halo frames are the neighbouring frame group's, whose block runs
-//     next to this one (T = 8: 1.25 reads at TG = 4, 1.75 at 2, 2.75 at 1).
-//   * 256 threads and at most ~113 KB of shared memory a block, so two
-//     blocks share an SM and one's loads overlap the other's build; where
-//     the grid has fewer blocks than SMs, one block an SM with a ring of
-//     up to four stages.  The host picks TG per site: the largest of 4 / 2
-//     / 1 under a cap (4 at Cr <= 16, 2 at Cr <= 64, 1 above: registers,
-//     as measured in PERF.md) that still gives two blocks an SM.
+//     A ring brings each chunk's TG + 2 frame tiles (t0-1 .. t0+TG; frames
+//     outside the clip are zero-filled, not read) by cp.async, 8 lanes to
+//     a row's 128 bytes.  So x is read (TG+2)/TG times from L2 but about
+//     once from memory: the halo frames are the neighbouring frame
+//     group's, whose block runs next to this one (T = 8: 1.25 reads at
+//     TG = 4, 1.75 at 2, 2.75 at 1).
+//   * 256 threads and at most ~113 KB of shared memory a block (a
+//     two-stage ring), so two blocks share an SM and one's loads overlap
+//     the other's build (at 7^2, with 160 blocks, this beat one block an
+//     SM with a four-stage ring).  The host picks TG per site: the largest
+//     of 4 / 2 / 1 under a cap (4 at Cr <= 16, 2 at Cr <= 64, 1 above:
+//     registers, as measured in PERF.md) that still gives two blocks an
+//     SM.
 //   * The build: warp w owns channels 8w .. 8w+7 of the chunk, lane l the
 //     rows l and l + 32, and walks its two vectors through the TG frames:
 //     x[t-1], x[t], x[t+1] in registers as f32 (each vector converted
@@ -82,7 +83,7 @@ constexpr int BM = 64;                  // spatial rows of a strip
 constexpr int BK = 64;                  // channels of a chunk: 128 bytes
 constexpr int kTile = BM * BK * 2;      // an x or A tile, 8 KB
 constexpr int kThreads = 256;           // two warpgroups
-constexpr int kMaxStages = 4;
+constexpr int kStages = 2;              // ring stages (fewer if C < 128)
 constexpr int kSmemSM = 233472;         // shared memory of an SM
 constexpr int kSMs = 132;
 constexpr int kMinBlocks = 2 * kSMs;    // two blocks an SM
@@ -113,14 +114,6 @@ struct Cfg {
   static_assert(kFPW * kNW / 2 <= 64, "at most 64 accumulators a thread");
   static_assert(8 * TG * BM * 4 <= kStage, "the mc sums fit in a stage");
 };
-
-// cp.async.wait_group with a count known only at run time (0 .. 3)
-__device__ __forceinline__ void cp_async_wait_n(int n) {
-  if (n <= 0) cp_async_wait<0>();
-  else if (n == 1) cp_async_wait<1>();
-  else if (n == 2) cp_async_wait<2>();
-  else cp_async_wait<3>();
-}
 
 // byte offset of element (row r, channel k) of an A tile: 128-byte rows,
 // the 16-byte chunks of row r XOR-swizzled by r % 8
@@ -272,7 +265,8 @@ stats_window_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wsh,
       tn1 = ldg16(wsh + C + k1);
       tn2 = ldg16(wsh + 2 * C + k1);
     }
-    cp_async_wait_n(stages - 1);       // chunk kc is in shared memory
+    if (stages > 1) cp_async_wait<1>();  // chunk kc is in shared memory
+    else cp_async_wait<0>();
     __syncthreads();                   // ... for every thread
 
     // build: the A tiles of the TG frames in place, and the sums
@@ -422,14 +416,10 @@ struct Geo {
 
 template <int TG, int N>
 void fill(int kt, Geo* g) {
-  // two blocks an SM where the grid has the blocks for it, so that one's
-  // loads overlap the other's build; else one block with a deeper ring
-  const int per_sm = g->blocks >= kSMs ? 2 : 1;
-  const int budget = kSmemSM / per_sm - 1024;    // 1 KB an SM keeps a block
+  static_assert(Cfg<TG, N>::bytes(kStages) + 1024 <= kSmemSM / 2,
+                "two blocks an SM (the SM keeps 1 KB a block)");
   g->threads = kThreads;
-  g->stages = kt < kMaxStages ? kt : kMaxStages;
-  while (g->stages > 1 && Cfg<TG, N>::bytes(g->stages) > budget)
-    --g->stages;
+  g->stages = kt < kStages ? kt : kStages;
   g->smem = Cfg<TG, N>::bytes(g->stages);
 }
 
