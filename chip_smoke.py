@@ -6,9 +6,12 @@ Phases; any miss raises and the run exits nonzero:
 1. build the CUDA kernels from the sources in this checkout, one ``nvcc``
    per source, all started together;
 2. hold ``action_stats`` / ``action_apply`` against their plain versions at
-   the eight ResNet-50 ACTION site shapes of the main path plus two ragged
-   shapes, three more routes of ``action_apply`` and one shape at T=5 (each
-   kernel's route printed per shape), in fp32 (TF32 off) and in bf16 (plain
+   the eight ResNet-50 ACTION site shapes of the main path, at the served
+   batch's 20 clips and at the train steps' 8 (the window kernel picks its
+   frame group TG from the clip count), plus two ragged shapes, three more
+   routes of ``action_apply`` and two shapes at T=5 whose last frame group
+   has masked frames (each kernel's route, and the window kernel's TG and
+   N, printed per shape), in fp32 (TF32 off) and in bf16 (plain
    version in f32 from the same bf16 inputs), ``action_stats`` also
    bitwise equal over two calls; and measure how far the TPU kernel's bf16
    running sum of ``pool`` would land from the f32 sum kept here;
@@ -50,7 +53,9 @@ Phases; any miss raises and the run exits nonzero:
    its window kernel; one call traced) and ``'mega'``, the four heads
    against the plain model; ``tsn_middle1/2/3``
    loaded with ``merge_state_dict`` ('prologue': 3 / 7 / 13 launches), each
-   against the SD model's exit;
+   against the SD model's exit; then every (TG, N) of the window kernel
+   that a main path launched (its sizes recorded at each launch) must be
+   among those that phases 2 and 4 held against the plain version;
 10. time each kernel, its plain version and a yardstick (the bare GEMM of
    the same ``[rows, C] x [C, F]`` (or ``x @ W_p3``) product for the ACTION
    kernels, the grouped ``conv3d`` and its backward for the learnable
@@ -95,9 +100,11 @@ RAGGED = [(1000, 128, 32), (50, 100, 24)]
 # fourth reading their gch from global memory; C = 72 (C % 64 != 0) takes
 # the FMA sweep in bf16 (and so does action_stats)
 ROUTE_SHAPES = [(201, 128, 512), (15, 64, 64), (50, 72, 40)]
-# (T, S, C, F) off T = 8: T % TG != 0 leaves masked frames in the window
-# kernel's last frame group
-T_SHAPES = [(5, 196, 128, 64)]
+# (T, S, C, F) off T = 8, each leaving masked frames in the window kernel's
+# last frame group at the served batch's 20 clips: 980 strips of 64 rows
+# take TG = 4 at Cr = 4 (frames 5-7 of the second group masked), 260 take
+# TG = 2 at Cr = 32 (frame 5 of the third); the checks assert T % TG != 0
+T_SHAPES = [(5, 3136, 64, 64), (5, 784, 512, 128)]
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 / fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -224,16 +231,38 @@ def _repeat_is_bitwise(torch, first, call):
     return all(torch.equal(a, b) for a, b in zip(first, again))
 
 
+def _check_shapes(n):
+    """(clips, T, S, C, F) of the ACTION kernel checks: every site at the
+    served batch's ``n`` clips and at TRAIN_CLIPS (the train steps' batch:
+    the window kernel picks its TG from the clip count), the ragged and
+    route shapes and T_SHAPES at ``n``."""
+    return ([(k, T) + s[:3] for k in (n, TRAIN_CLIPS) for s in SITES] +
+            [(n, T) + s[:3] for s in RAGGED + ROUTE_SHAPES] +
+            [(n,) + s for s in T_SHAPES])
+
+
+def _window_template(mega, route, k, t, s, c):
+    """The window kernel's TG and N at these sizes (as its host code picks
+    them; nothing off that route); a shape off T = 8 must leave masked
+    frames in the last frame group (T % TG != 0)."""
+    if route != "window":
+        return {}
+    g = mega.window_grid(k, t, s, c, c // 16)
+    if t != T and t % g["TG"] == 0:
+        raise AssertionError(f"T={t} S={s} C={c}: TG={g['TG']} divides T, "
+                             "so no frame of the last group is masked")
+    return dict(TG=g["TG"], N=g["N"])
+
+
 def check_kernels(torch, mega, n, gen):
-    """Each kernel against its plain version at every site shape, fp32 and
-    bf16, ``action_stats`` also bitwise over two calls; returns
-    per-(shape, dtype) errors and raises on a miss."""
+    """Each kernel against its plain version at every shape of
+    ``_check_shapes``, fp32 and bf16, ``action_stats`` also bitwise over
+    two calls; returns per-(shape, dtype) errors and raises on a miss."""
     results, pool_acc = [], []
-    shapes = [(T,) + s[:3] for s in SITES + RAGGED + ROUTE_SHAPES] + T_SHAPES
-    for t, s, c, f in shapes:
+    for k, t, s, c, f in _check_shapes(n):
         for dname in ("float32", "bfloat16"):
-            d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen, t)
-            ref = {k: v.float() for k, v in d.items()}   # same values, f32
+            d = _inputs(torch, k, s, c, f, getattr(torch, dname), gen, t)
+            ref = {k_: v.float() for k_, v in d.items()}   # same values, f32
             stats = lambda: mega.action_stats(d["x4"], d["w"], d["wp3"])
             first, routes = {}, {}
             first["stats"], routes["action_stats"] = _launched_route(
@@ -249,33 +278,36 @@ def check_kernels(torch, mega, n, gen):
                 ref["x4"], ref["w"], ref["g1"], ref["gch"], ref["wn"])
             torch.cuda.synchronize()
             bitwise = _repeat_is_bitwise(torch, first["stats"], stats)
+            tmpl = _window_template(mega, routes["action_stats"], k, t, s, c)
             for name in got:
                 err, rel = _rel_err(got[name], want[name])
                 kernel = "action_apply" if name == "out" else "action_stats"
                 route = routes[kernel]
                 ok = rel <= TOL[dname] and math.isfinite(err)
-                results.append(dict(kernel=kernel, output=name, T=t, S=s,
-                                    C=c, F=f, dtype=dname, max_abs_err=err,
-                                    max_rel_err=rel, tol=TOL[dname], ok=ok,
-                                    route=route))
+                results.append(dict(kernel=kernel, output=name, clips=k, T=t,
+                                    S=s, C=c, F=f, dtype=dname,
+                                    max_abs_err=err, max_rel_err=rel,
+                                    tol=TOL[dname], ok=ok, route=route))
                 tail = ""
                 if kernel == "action_stats":
-                    results[-1]["bitwise_repeat"] = bitwise
-                    tail = f" repeat bitwise {bitwise}"
-                print(f"check {kernel:12s} {name:4s} T={t} S={s:4d} "
+                    results[-1].update(tmpl, bitwise_repeat=bitwise)
+                    tail = "".join(f" {a}={v}" for a, v in tmpl.items())
+                    tail += f" repeat bitwise {bitwise}"
+                print(f"check {kernel:12s} {name:4s} n={k} T={t} S={s:4d} "
                       f"C={c:4d} F={f:3d} {dname:8s} max_abs_err={err:.3e} "
                       f"rel={rel:.3e} tol={TOL[dname]:.0e} "
                       f"{'ok' if ok else 'MISS'} {route}{tail}", flush=True)
                 if not ok:
                     raise AssertionError(
                         f"{kernel}.{name} disagrees with its plain version "
-                        f"at T={t} S={s} C={c} F={f} {dname}: rel {rel:.3e} "
-                        f"> {TOL[dname]}")
+                        f"at n={k} T={t} S={s} C={c} F={f} {dname}: rel "
+                        f"{rel:.3e} > {TOL[dname]}")
             if not bitwise:
                 raise AssertionError(f"action_stats ({routes['action_stats']}"
-                                     f") differs between two calls at T={t} "
-                                     f"S={s} C={c} {dname}")
-            if dname == "bfloat16" and (s, c, f) in [x[:3] for x in SITES]:
+                                     f") differs between two calls at n={k} "
+                                     f"T={t} S={s} C={c} {dname}")
+            if dname == "bfloat16" and k == n and t == T and \
+                    (s, c, f) in [x[:3] for x in SITES]:
                 pool_acc.append(pool_accumulation_delta(torch, d))
             del d, ref, got, want, first
     print("pool_accumulation " + json.dumps(pool_acc), flush=True)
@@ -421,17 +453,71 @@ def _counters():
             "tsm_shift_reverse": (tk.tsm_shift, "reverse_launches")}
 
 
+# sizes (kernel, clips, T, S, C, Cr) of the window kernel's launches since
+# the counters were last zeroed ("now"), and of those read after a main
+# path ("main"; see record_window_launches)
+WINDOW_LAUNCHES = {"now": set(), "main": set()}
+WINDOW_ENTRIES = {"ehgr_action_stats_window": "action_stats",
+                  "ehgr_action_prologue_window": "action_prologue"}
+
+
+def record_window_launches(mega, fused):
+    """Let each launch of a window entry point through the two wrappers'
+    ``launch`` (a module global each looks up at the call) add its sizes to
+    WINDOW_LAUNCHES["now"]; the launch itself is unchanged.  A main path
+    zeroes the counters just before it runs and reads them just after, so
+    ``_launches`` folds "now" into "main" there."""
+    for mod in (mega, fused):
+        def recording(lib, fn, x4, *args, _launch=mod.launch):
+            if fn in WINDOW_ENTRIES:
+                WINDOW_LAUNCHES["now"].add((WINDOW_ENTRIES[fn],) +
+                                           tuple(args[-5:]))
+            return _launch(lib, fn, x4, *args)
+        mod.launch = recording
+
+
 def reset_counters():
     for fn, attr in _counters().values():
         if isinstance(fn, dict):
             fn[attr] = 0
         else:
             setattr(fn, attr, 0)
+    WINDOW_LAUNCHES["now"].clear()
 
 
 def _launches():
+    WINDOW_LAUNCHES["main"] |= WINDOW_LAUNCHES["now"]
     return {k: fn[attr] if isinstance(fn, dict) else getattr(fn, attr)
             for k, (fn, attr) in _counters().items()}
+
+
+def check_window_coverage(mega, checks):
+    """Every (kernel, TG, N) of the window kernel that a main path
+    launched (its sizes recorded at the launch, TG and N as the host code
+    picks them for those sizes) was held against its plain version by a
+    check; raises if one was not."""
+    checked = {(r["kernel"], r["TG"], r["N"]) for r in checks if "TG" in r}
+    launched = {}
+    for kernel, k, t, s, c, cr in sorted(WINDOW_LAUNCHES["main"]):
+        g = mega.window_grid(k, t, s, c, cr)
+        launched.setdefault((kernel, g["TG"], g["N"]), []).append(
+            dict(clips=k, T=t, S=s, C=c, Cr=cr))
+    out = [dict(kernel=kernel, TG=tg, N=nn,
+                checked=(kernel, tg, nn) in checked, shapes=shapes)
+           for (kernel, tg, nn), shapes in sorted(launched.items())]
+    for r in out:
+        print(f"window_coverage {r['kernel']} TG={r['TG']} N={r['N']} "
+              f"checked={r['checked']} launched at " +
+              ", ".join(f"n={d['clips']} T={d['T']} S={d['S']} C={d['C']} "
+                        f"Cr={d['Cr']}" for d in r["shapes"]), flush=True)
+    if not out:
+        raise AssertionError("the main paths launched no window kernel")
+    missing = [(r["kernel"], r["TG"], r["N"]) for r in out
+               if not r["checked"]]
+    if missing:
+        raise AssertionError(f"window kernel (kernel, TG, N) launched on a "
+                             f"main path and never checked: {missing}")
+    return out
 
 
 def serve(torch, model, batches, want, name="serve", heads=1):
@@ -823,45 +909,46 @@ def check_tsm(torch, tk, gen):
     return results
 
 
-def check_prologue(torch, fused, n, gen):
+def check_prologue(torch, fused, mega, n, gen):
     """``action_prologue`` against its plain version (in f32 from the same
-    values) and bitwise over two calls, at the 8 site shapes (F unused), the
-    2 ragged ones, the routes' shapes and the T=5 one, all four outputs,
-    fp32 and bf16; raises on a miss."""
+    values) and bitwise over two calls, at every shape of
+    ``_check_shapes`` (F unused), all four outputs, fp32 and bf16; raises
+    on a miss."""
     results = []
-    shapes = [(T,) + s[:3] for s in SITES + RAGGED + ROUTE_SHAPES] + T_SHAPES
-    for t, s, c, f in shapes:
+    for k, t, s, c, f in _check_shapes(n):
         for dname in ("float32", "bfloat16"):
-            d = _inputs(torch, n, s, c, f, getattr(torch, dname), gen, t)
+            d = _inputs(torch, k, s, c, f, getattr(torch, dname), gen, t)
             call = lambda: fused.action_prologue(d["x4"], d["w"], d["wp3"])
             got, route = _launched_route(fused.action_prologue, call)
             want = fused.action_prologue_plain(
                 d["x4"].float(), d["w"].float(), d["wp3"].float())
             torch.cuda.synchronize()
             bitwise = _repeat_is_bitwise(torch, got, call)
+            tmpl = _window_template(mega, route, k, t, s, c)
+            tail = "".join(f" {a}={v}" for a, v in tmpl.items())
             for name, g, w in zip(("x_shift", "mc", "pool", "x3"), got,
                                   want):
                 err, rel = _rel_err(g, w)
                 ok = rel <= TOL[dname] and math.isfinite(err)
                 results.append(dict(kernel="action_prologue", output=name,
-                                    T=t, S=s, C=c, dtype=dname,
+                                    clips=k, T=t, S=s, C=c, dtype=dname,
                                     max_abs_err=err, max_rel_err=rel,
                                     tol=TOL[dname], ok=ok, route=route,
-                                    bitwise_repeat=bitwise))
-                print(f"check action_prologue {name:7s} T={t} S={s:4d} "
-                      f"C={c:4d} {dname:8s} max_abs_err={err:.3e} "
+                                    bitwise_repeat=bitwise, **tmpl))
+                print(f"check action_prologue {name:7s} n={k} T={t} "
+                      f"S={s:4d} C={c:4d} {dname:8s} max_abs_err={err:.3e} "
                       f"rel={rel:.3e} tol={TOL[dname]:.0e} "
-                      f"{'ok' if ok else 'MISS'} {route} repeat bitwise "
-                      f"{bitwise}", flush=True)
+                      f"{'ok' if ok else 'MISS'} {route}{tail} repeat "
+                      f"bitwise {bitwise}", flush=True)
                 if not ok:
                     raise AssertionError(
                         f"action_prologue.{name} disagrees with its plain "
-                        f"version at T={t} S={s} C={c} {dname}: rel "
+                        f"version at n={k} T={t} S={s} C={c} {dname}: rel "
                         f"{rel:.3e}")
             if not bitwise:
                 raise AssertionError(f"action_prologue ({route}) differs "
-                                     f"between two calls at T={t} S={s} "
-                                     f"C={c} {dname}")
+                                     f"between two calls at n={k} T={t} "
+                                     f"S={s} C={c} {dname}")
             del d, got, want
     return results
 
@@ -1546,6 +1633,7 @@ def main(argv=None) -> int:
 
     n = VIDEOS * CLIPS                         # clips per forward
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    record_window_launches(mega, fused)
     phases = {}
 
     def phase(name, fn, *a):
@@ -1558,7 +1646,8 @@ def main(argv=None) -> int:
                              gen)
     checks += phase("check_shift", check_shift, torch, shk, gen)
     checks += phase("check_tsm", check_tsm, torch, tk, gen)
-    checks += phase("check_prologue", check_prologue, torch, fused, n, gen)
+    checks += phase("check_prologue", check_prologue, torch, fused, mega, n,
+                    gen)
     batches = make_batches(args.seed)
 
     # PR 1's path: the ACTION scorer ('mega')
@@ -1605,6 +1694,7 @@ def main(argv=None) -> int:
                       "sd", ("bn_batch",))
     deploy = phase("sd_deploy", sd_deploy, torch, args.seed, sd_state,
                    batches)
+    coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
                     time_shift(torch, shk, gen) + time_tsm(torch, tk, gen) +
@@ -1630,6 +1720,7 @@ def main(argv=None) -> int:
                       "tsm_train": tsm_trained, "tsm_sites": tsm_sites,
                       "sd_transfer": transfer, "sd_train": sd_trained,
                       "sd_parity": sd_parity, "sd_deploy": deploy,
+                      "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

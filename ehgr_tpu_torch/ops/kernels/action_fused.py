@@ -65,7 +65,7 @@ def action_prologue(x4: torch.Tensor, w_shift: torch.Tensor,
     x3 = x4.new_empty((n, t, s, cr))
     args = (x4.data_ptr(), w_shift.data_ptr(), w_p3.data_ptr(), xs.data_ptr(),
             mc.data_ptr(), pool.data_ptr(), x3.data_ptr(),
-            stats_scratch(x4).data_ptr(), n, t, s, c, cr)
+            stats_scratch(x4, lib).data_ptr(), n, t, s, c, cr)
     launch(lib, "ehgr_action_prologue_window" if route == "window"
            else "ehgr_action_prologue", x4, *args)
     action_prologue.launches += 1

@@ -41,11 +41,6 @@ def action_stats_plain(x4: torch.Tensor, w_shift: torch.Tensor,
     return tuple(v.to(x4.dtype) for v in out)
 
 
-# rows of a strip in both stats kernels: pool is summed per strip of 64
-# rows, then over the strips in order
-STRIP = 64
-
-
 def _aligned(*tensors: torch.Tensor) -> bool:
     return all(v.data_ptr() % 16 == 0 for v in tensors)
 
@@ -53,20 +48,23 @@ def _aligned(*tensors: torch.Tensor) -> bool:
 def _stats_route(dtype: torch.dtype, c: int, cr: int, aligned: bool) -> str:
     """The kernel that computes ``action_stats`` and ``action_prologue``, a
     pure function of the operands: ``'window'`` (``csrc/action_stats.cu``:
-    bf16 with C % 64 == 0, Cr % 4 == 0, Cr <= 256 and x, w_shift, W_p3
-    16-byte aligned, which every ResNet-50 site meets) or ``'fma_sweep'``
-    (``csrc/action_mega.cu``: fp32, and any other bf16)."""
+    bf16 with C % 64 == 0, Cr % 4 == 0, Cr <= 128 and x, w_shift, W_p3
+    16-byte aligned, which every ResNet-50 site meets: its largest Cr is
+    2048 / 16) or ``'fma_sweep'`` (``csrc/action_mega.cu``: fp32, and any
+    other bf16)."""
     if dtype == torch.bfloat16 and aligned and c % 64 == 0 and \
-            cr % 4 == 0 and 0 < cr <= 256:
+            cr % 4 == 0 and 0 < cr <= 128:
         return "window"
     return "fma_sweep"
 
 
-def stats_scratch(x4: torch.Tensor) -> torch.Tensor:
-    """The f32 pool partials both stats kernels write: one row of column
-    sums per 64-row strip of each frame, ``[N*T*ceil(S/64), C]``."""
+def stats_scratch(x4: torch.Tensor, lib: str) -> torch.Tensor:
+    """The f32 pool partials that the stats kernel of library ``lib``
+    writes: one row of column sums per strip of each frame, as many rows as
+    the library reports (``ehgr_action_pool_scratch_rows``), by ``C``."""
     n, t, s, c = x4.shape
-    return x4.new_empty((n * t * -(-s // STRIP), c), dtype=torch.float32)
+    rows = load(lib).ehgr_action_pool_scratch_rows(n, t, s)
+    return x4.new_empty((rows, c), dtype=torch.float32)
 
 
 def action_stats(x4: torch.Tensor, w_shift: torch.Tensor, w_p3: torch.Tensor
@@ -91,7 +89,7 @@ def action_stats(x4: torch.Tensor, w_shift: torch.Tensor, w_p3: torch.Tensor
     x3 = x4.new_empty((n, t, s, cr))
     args = (x4.data_ptr(), w_shift.data_ptr(), w_p3.data_ptr(),
             mc.data_ptr(), pool.data_ptr(), x3.data_ptr(),
-            stats_scratch(x4).data_ptr(), n, t, s, c, cr)
+            stats_scratch(x4, lib).data_ptr(), n, t, s, c, cr)
     launch(lib, "ehgr_action_stats_window" if route == "window"
            else "ehgr_action_stats", x4, *args)
     action_stats.launches += 1

@@ -28,8 +28,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# C entry points of each library: name -> argtypes (restype is int, the
-# cudaError_t of the launches)
+# C entry points of each library: name -> argtypes (restype is int: the
+# cudaError_t of the launches, or the count a ``..._rows`` entry returns)
 SIGNATURES: Dict[str, Dict[str, list]] = {
     "action_mega": {
         # dtype, x, w, wp3, mc, pool, x3, part, n, t, s, c, cr, stream
@@ -41,6 +41,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # dtype, x, w, wp3, xs, mc, pool, x3, part, n, t, s, c, cr, stream
         "ehgr_action_prologue": [_I, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _P],
+        # n, t, s -> rows of part (returned)
+        "ehgr_action_pool_scratch_rows": [_I, _I, _I],
     },
     "action_stats": {
         # dtype (bf16 only), x, w, wp3, mc, pool, x3, part, n, t, s, c, cr,
@@ -53,6 +55,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # n, t, s, c, cr, int[8] out: blocks, TG, N, strips, frame groups,
         # threads, stages, shared memory bytes
         "ehgr_action_stats_window_grid": [_I, _I, _I, _I, _I, _P],
+        # n, t, s -> rows of part (returned)
+        "ehgr_action_pool_scratch_rows": [_I, _I, _I],
     },
     "action_apply": {
         # dtype (bf16 only), x, w, g1, gch, wn, out, n, t, s, c, f, stream

@@ -271,10 +271,23 @@ __device__ __forceinline__ void st(bf16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
+// Rows of the strip whose f32 column sums make one row of the pool
+// partials, in both stats sweeps (csrc/action_stats.cu and
+// csrc/action_mega.cu each static_assert their strip against it): part is
+// [n*t*ceil(s/kPoolStrip), c], as many rows as pool_scratch_rows says, and
+// each library reports that count to its caller
+// (ehgr_action_pool_scratch_rows), which allocates part.
+constexpr int kPoolStrip = 64;
+
+inline int pool_strips(int s) { return (s + kPoolStrip - 1) / kPoolStrip; }
+inline int pool_scratch_rows(int n, int t, int s) {
+  return n * t * pool_strips(s);
+}
+
 // pool[nt, c] = (sum over the strips st of part[nt * nst + st, c]) / S,
 // summed in strip order: the cross-block half of pool, with no atomics, so
 // two calls on the same input agree bitwise.  part is [n*t*nst, c] f32,
-// each row the column sums of one 64-row strip of one frame.
+// each row the column sums of one kPoolStrip-row strip of one frame.
 template <typename T>
 __global__ void pool_reduce(const float* __restrict__ part,
                             T* __restrict__ pool, int nt, int nst, int c,
@@ -289,11 +302,11 @@ __global__ void pool_reduce(const float* __restrict__ part,
 }
 
 template <typename T>
-int launch_pool_reduce(const float* part, void* pool, int nt, int nst,
-                       int c, int s, cudaStream_t stream) {
+int launch_pool_reduce(const float* part, void* pool, int nt, int c, int s,
+                       cudaStream_t stream) {
   const long long total = (long long)nt * c;
   pool_reduce<T><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-      part, (T*)pool, nt, nst, c, 1.f / (float)s);
+      part, (T*)pool, nt, pool_strips(s), c, 1.f / (float)s);
   return (int)cudaGetLastError();
 }
 

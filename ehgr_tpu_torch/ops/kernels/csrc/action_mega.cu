@@ -45,6 +45,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int BM = 64;
+static_assert(BM == kPoolStrip, "one row of pool partials a row tile");
 constexpr int BK = 32;
 constexpr int TY = 16;                 // thread rows;  TM = BM / TY = 4
 constexpr int TX = 16;                 // thread cols;  TN = BN / TX
@@ -187,8 +188,7 @@ int stats_impl(const void* x, const void* w, const void* wp3, void* xs,
                                   xs, n, t, s, c, cr, stream);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return launch_pool_reduce<T>(part, pool, n * t, (s + BM - 1) / BM, c, s,
-                               stream);
+  return launch_pool_reduce<T>(part, pool, n * t, c, s, stream);
 }
 
 template <bool XS>
@@ -209,8 +209,9 @@ int stats_entry(int dtype, const void* x, const void* w, const void* wp3,
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16.  Every pointer is a device pointer to a
-// contiguous tensor of that dtype (part: f32 scratch of n*t*ceil(s/64) x
-// c).  Returns the cudaError_t of the launches (0 = success).
+// contiguous tensor of that dtype (part: f32 scratch of
+// ehgr_action_pool_scratch_rows(n, t, s) x c).  Returns the cudaError_t of
+// the launches (0 = success).
 extern "C" int ehgr_action_stats(int dtype, const void* x, const void* w,
                                  const void* wp3, void* mc, void* pool,
                                  void* x3, void* part, int n, int t, int s,
@@ -244,4 +245,10 @@ extern "C" int ehgr_action_apply(int dtype, const void* x, const void* w,
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
+}
+
+// Rows of the f32 pool partials (part) that ehgr_action_stats and
+// ehgr_action_prologue write for x [n,t,s,*].
+extern "C" int ehgr_action_pool_scratch_rows(int n, int t, int s) {
+  return pool_scratch_rows(n, t, s);
 }

@@ -3,7 +3,7 @@
 // tensor cores.  CUDA C++ with a plain C interface loaded through ctypes
 // (ehgr_tpu_torch/ops/kernels/build.py).
 //
-// Replaces, on the main path (bf16 with C % 64 == 0, Cr % 4 == 0, Cr <= 256
+// Replaces, on the main path (bf16 with C % 64 == 0, Cr % 4 == 0, Cr <= 128
 // and 16-byte aligned operands, which every ResNet-50 ACTION site meets;
 // fp32 and other shapes keep the FMA sweep of csrc/action_mega.cu):
 //   action_stats     ehgr_tpu/ops/pallas/action_mega.py:126 (pallas_call
@@ -56,12 +56,14 @@
 //     rows (pool: 9 shuffles reduce and scatter them over the lanes, so a
 //     column's sum never leaves its warp), and its rows' 8-channel sums
 //     (mc), which meet across the 8 warps once, at the end.
-//   * The product: N = Cr rounded up to 16 / 32 / 64 / 128 / 256 (zero
+//   * The product: N = Cr rounded up to 16 / 32 / 64 / 128 (zero
 //     columns), so a thread holds no more accumulators than Cr needs.
+//     ResNet-50's largest Cr is 2048 / 16 = 128; a larger Cr takes the
+//     FMA sweep.
 //     W_p3 [C, Cr] keeps Cr contiguous: its chunk rides the ring as
 //     64-column atoms (16-byte copies; 8-byte ones at Cr = 4, whose rows
 //     are 8 bytes).  A warpgroup multiplies the A tiles of TG/2 frames (at
-//     TG = 1 and N >= 128: half the columns of the one frame) by it with
+//     TG = 1 and N = 128: half the columns of the one frame) by it with
 //     4 x wgmma m64nNk16 a chunk, B read MN-major through the transpose
 //     bit (as in csrc/action_apply.cu), the accumulators in registers; the
 //     product of chunk k runs while the sums of chunk k are written and
@@ -80,6 +82,7 @@
 namespace {
 
 constexpr int BM = 64;                  // spatial rows of a strip
+static_assert(BM == kPoolStrip, "one row of pool partials a strip");
 constexpr int BK = 64;                  // channels of a chunk: 128 bytes
 constexpr int kTile = BM * BK * 2;      // an x or A tile, 8 KB
 constexpr int kThreads = 256;           // two warpgroups
@@ -89,8 +92,7 @@ constexpr int kSMs = 132;
 constexpr int kMinBlocks = 2 * kSMs;    // two blocks an SM
 // the (TG, N) the kernel is built for: every TG under the cap of its N
 #define EHGR_STATS_SHAPES(X)                                               \
-  X(4, 16) X(2, 16) X(1, 16) X(2, 32) X(1, 32) X(2, 64) X(1, 64) X(1, 128) \
-  X(1, 256)
+  X(4, 16) X(2, 16) X(1, 16) X(2, 32) X(1, 32) X(2, 64) X(1, 64) X(1, 128)
 
 // One ring stage (every tile 1024-byte aligned): the TG + 2 frame tiles and
 // the W_p3 tile, MN-major as W_p3 lies in memory: 64-column atoms of 64
@@ -98,10 +100,10 @@ constexpr int kMinBlocks = 2 * kSMs;    // two blocks an SM
 template <int TG, int N>
 struct Cfg {
   // warpgroup g multiplies frames g*kFPW .. g*kFPW + kFPW-1 by all N
-  // columns; at TG = 1 and N >= 128 both take frame 0, warpgroup g the
+  // columns; at TG = 1 and N = 128 both take frame 0, warpgroup g the
   // columns g*N/2 .. (whole 64-column atoms of the W_p3 tile); at TG = 1
   // and N <= 64 warpgroup 1 has no frame
-  static constexpr bool kSplit = TG == 1 && N >= 128;
+  static constexpr bool kSplit = TG == 1 && N == 128;
   static constexpr int kFPW = TG >= 2 ? TG / 2 : 1;
   static constexpr int kNW = kSplit ? N / 2 : N;   // columns a warpgroup
   static constexpr int kWTile = BK * (N < 64 ? 64 : N) * 2;
@@ -423,13 +425,12 @@ void fill(int kt, Geo* g) {
   g->smem = Cfg<TG, N>::bytes(g->stages);
 }
 
-// N = Cr rounded up to 16 / 32 / 64 / 128 / 256; TG the largest of 4 / 2
+// N = Cr rounded up to 16 / 32 / 64 / 128; TG the largest of 4 / 2
 // / 1 under the cap (4 at N = 16, 2 at 32 and 64, 1 above) that gives at
 // least kMinBlocks blocks, and no larger than T needs.
 void geometry(int n, int t, int s, int c, int cr, Geo* g) {
-  g->nn = cr <= 16 ? 16 : cr <= 32 ? 32 : cr <= 64 ? 64 : cr <= 128 ? 128
-                                                                   : 256;
-  g->nst = (s + BM - 1) / BM;
+  g->nn = cr <= 16 ? 16 : cr <= 32 ? 32 : cr <= 64 ? 64 : 128;
+  g->nst = pool_strips(s);
   const long long strips = (long long)n * g->nst;
   int tg = g->nn == 16 ? 4 : g->nn <= 64 ? 2 : 1;
   while (tg > 1 && (tg >= 2 * t ||
@@ -466,7 +467,7 @@ int window_entry(int dtype, const void* x, const void* w, const void* wp3,
                  int t, int s, int c, int cr, cudaStream_t stream) {
   const uintptr_t a = (uintptr_t)x | (uintptr_t)w | (uintptr_t)wp3 |
                       (uintptr_t)(XS ? xs : x);
-  if (dtype != 1 || c % BK != 0 || cr % 4 != 0 || cr <= 0 || cr > 256 ||
+  if (dtype != 1 || c % BK != 0 || cr % 4 != 0 || cr <= 0 || cr > 128 ||
       a % 16 != 0 || n <= 0 || t <= 0 || s <= 0)
     return (int)cudaErrorInvalidValue;
   Geo g;
@@ -479,16 +480,17 @@ int window_entry(int dtype, const void* x, const void* w, const void* wp3,
   EHGR_STATS_SHAPES(EHGR_LAUNCH)
 #undef EHGR_LAUNCH
   if (e != 0) return e;
-  return launch_pool_reduce<bf16>((const float*)part, pool, n * t, g.nst, c,
-                                  s, stream);
+  return launch_pool_reduce<bf16>((const float*)part, pool, n * t, c, s,
+                                  stream);
 }
 
 }  // namespace
 
 // dtype 1 (bf16) only.  x [n,t,s,c], w [3,c], wp3 [c,cr], mc [n,t,s],
 // pool [n,t,c], x3 [n,t,s,cr]: contiguous device tensors; part: f32
-// scratch of n*t*ceil(s/64) x c.  c % 64 == 0, cr % 4 == 0, cr <= 256 and
-// x, w, wp3 16-byte aligned, else cudaErrorInvalidValue.  Returns the
+// scratch of ehgr_action_pool_scratch_rows(n, t, s) x c.  c % 64 == 0,
+// cr % 4 == 0, cr <= 128 and x, w, wp3 16-byte aligned, else
+// cudaErrorInvalidValue.  Returns the
 // cudaError_t of the launches (0 = success).
 extern "C" int ehgr_action_stats_window(int dtype, const void* x,
                                         const void* w, const void* wp3,
@@ -521,4 +523,10 @@ extern "C" int ehgr_action_stats_window_grid(int n, int t, int s, int c,
                     g.stages, g.smem};
   for (int i = 0; i < 8; ++i) grid[i] = v[i];
   return 0;
+}
+
+// Rows of the f32 pool partials (part) that the two entry points write for
+// x [n,t,s,*].
+extern "C" int ehgr_action_pool_scratch_rows(int n, int t, int s) {
+  return pool_scratch_rows(n, t, s);
 }

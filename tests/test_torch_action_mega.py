@@ -214,15 +214,31 @@ class TestApplyRoute:
             k: int(k == want) for k in after}
 
 
+class _ScratchRows:
+    """Stand-in for a built stats library: reports the rows of its pool
+    scratch, one per 64-row strip of each frame, and records the call."""
+
+    calls = []
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def ehgr_action_pool_scratch_rows(self, n, t, s):
+        _ScratchRows.calls.append((self.lib, n, t, s))
+        return n * t * -(-s // 64)
+
+
 def _launch_on_cuda(monkeypatch, wrapper, dtype, offset, c=64, cr=4):
     """Call ``wrapper(x4, w_shift, w_p3)`` on CPU tensors that report
     ``cuda:0`` (``x4`` a view ``offset`` elements into its storage) with
-    ``launch`` recorded instead of run (and nothing built); returns the (library, entry point)
-    it launched and the change of ``wrapper.route_launches``."""
+    ``launch`` recorded instead of run (and nothing built; ``load`` gives a
+    library stand-in that reports the pool scratch's rows); returns the
+    (library, entry point) it launched and the change of
+    ``wrapper.route_launches``."""
     calls = []
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     for mod in (mega, fused):
-        monkeypatch.setattr(mod, "load", lambda lib: None)
+        monkeypatch.setattr(mod, "load", _ScratchRows)
         monkeypatch.setattr(mod, "launch",
                             lambda lib, fn, x4, *a: calls.append((lib, fn)))
     n, t, s = 1, 2, 3
@@ -247,7 +263,8 @@ class TestStatsRoute:
         (torch.float32, 256, 16, True),
         (torch.bfloat16, 96, 6, True),        # C % 64 != 0
         (torch.bfloat16, 256, 6, True),       # Cr % 4 != 0
-        (torch.bfloat16, 4096, 512, True),    # Cr > 256
+        (torch.bfloat16, 4096, 512, True),    # Cr > 128
+        (torch.bfloat16, 2048, 256, True),    # 128 < Cr <= 256: no site
         (torch.bfloat16, 256, 16, False)])    # misaligned
     def test_other_operands_take_the_fma_sweep(self, dtype, c, cr,
                                                aligned):
@@ -267,6 +284,20 @@ class TestStatsRoute:
                          if want == "window"
                          else ("action_mega", "ehgr_action_stats")]
         assert moved == {k: int(k == want) for k in moved}
+        assert _ScratchRows.calls[-1] == (calls[0][0], 1, 2, 3)
+
+    @pytest.mark.parametrize("lib", ["action_stats", "action_mega"])
+    def test_scratch_has_the_rows_its_library_reports(self, monkeypatch,
+                                                      lib):
+        """The pool partials are f32, C wide and as many rows as the
+        library of the route reports, so no strip height is kept in
+        Python beside the kernels'."""
+        monkeypatch.setattr(mega, "load", _ScratchRows)
+        x4 = torch.zeros(2, 3, 65, 64, dtype=torch.bfloat16)
+        part = mega.stats_scratch(x4, lib)
+        assert _ScratchRows.calls[-1] == (lib, 2, 3, 65)
+        assert part.shape == (2 * 3 * 2, 64)
+        assert part.dtype == torch.float32
 
 
 def _randomized(variables, rng):
