@@ -105,6 +105,10 @@ ROUTE_SHAPES = [(201, 128, 512), (15, 64, 64), (50, 72, 40)]
 # take TG = 4 at Cr = 4 (frames 5-7 of the second group masked), 260 take
 # TG = 2 at Cr = 32 (frame 5 of the third); the checks assert T % TG != 0
 T_SHAPES = [(5, 3136, 64, 64), (5, 784, 512, 128)]
+# bytes written before each device-only timed launch of a shift kernel:
+# over the card's 50 MB L2, so the launch reads its inputs from device
+# memory, as the train step finds them
+FLUSH_BYTES = 128 << 20
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 / fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1245,6 +1249,55 @@ def _time_ms(torch, fn, reps=20):
     return a.elapsed_time(b) / reps
 
 
+def _device_times(torch, fn, reps=10):
+    """Device-only time of one ``fn()`` call with its inputs cold in L2:
+    the call's launches captured once as a CUDA graph and replayed ``reps``
+    times, each replay after a write of FLUSH_BYTES, CUDA events around the
+    replay alone (one host call enqueues it while the flush still runs, so
+    no host time falls between the events; the gaps between the call's own
+    kernels do).  Returns (ms, ms by kernel name: each kernel's mean device
+    duration a call, from a ``torch.profiler`` trace of ``reps`` direct
+    calls, each after the same flush)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                  # built, and warm on a side stream
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    marks = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for a, b in marks:
+        flush.fill_(1.0)
+        a.record()
+        graph.replay()
+        b.record()
+    torch.cuda.synchronize()
+    ms = sum(a.elapsed_time(b) for a, b in marks) / reps
+    del graph
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.fill_(1.0)
+            fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA") and "Fill" not in e.key:
+            name = e.key.replace("void ", "").replace(
+                "(anonymous namespace)::", "").split("(")[0]
+            by_name[name] = by_name.get(name, 0.0) + getattr(
+                e, "self_device_time_total",
+                getattr(e, "self_cuda_time_total", 0)) / reps / 1e3
+    return ms, by_name
+
+
 def _bound_ms(nbytes, flops, dname):
     """(ms to move the bytes, ms to do the FLOPs) at the card's peaks."""
     return nbytes / PEAK_BYTES * 1e3, flops / PEAK_FLOPS[dname] * 1e3
@@ -1363,12 +1416,17 @@ def time_shift(torch, shk, gen):
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      ms=_time_ms(torch, fk), plain_ms=_time_ms(torch, fp),
                      library_ms=_time_ms(torch, fl))
+            r["device_ms"], r["device_ms_by_kernel"] = _device_times(
+                torch, fk)
             r["roofline_share"] = bound / r["ms"]
+            r["device_share"] = bound / r["device_ms"]
             rows_out.append(r)
             print(f"time {kernel:19s} S={s:4d} C={c:4d} ms={r['ms']:.4f} "
-                  f"bound={bound:.4f} ({r['bound_by']}) "
+                  f"device_ms={r['device_ms']:.4f} bound={bound:.4f} "
+                  f"({r['bound_by']}) share={r['device_share']:.3f} "
                   f"plain={r['plain_ms']:.4f} "
-                  f"library={r['library_ms']:.4f}", flush=True)
+                  f"library={r['library_ms']:.4f} device_ms_by_kernel="
+                  f"{r['device_ms_by_kernel']}", flush=True)
         del x, w, g, x5, g5, wc
     return rows_out
 
@@ -1413,10 +1471,16 @@ def time_tsm(torch, tk, gen):
                  library_ms_reverse=lib[True]["ms"],
                  library_bitwise=lib[False]["bitwise"] and
                  lib[True]["bitwise"])
+        for name, rev in (("forward", False), ("reverse", True)):
+            r[f"device_ms_{name}"] = _device_times(
+                torch, lambda: tk.tsm_shift(x, FOLD_DIV, reverse=rev))[0]
         r["roofline_share"] = bound / r["ms_forward"]
+        r["device_share"] = bound / r["device_ms_forward"]
         rows_out.append(r)
         print(f"time tsm_shift S={s:4d} C={c:4d} fwd={r['ms_forward']:.4f} "
-              f"rev={r['ms_reverse']:.4f} bound={bound:.4f} (bytes) "
+              f"rev={r['ms_reverse']:.4f} device fwd="
+              f"{r['device_ms_forward']:.4f} rev={r['device_ms_reverse']:.4f}"
+              f" share={r['device_share']:.3f} bound={bound:.4f} (bytes) "
               f"plain={r['plain_ms']:.4f} "
               f"library={r['library_ms_forward']:.4f}"
               f"+{r['library_ms_reverse']:.4f}", flush=True)
@@ -1506,6 +1570,9 @@ def kernel_table(checks, timings, launches):
             library_ms=tot.get("library_ms"))
         if yard == "matmul_ms":
             entry["matmul_ms"] = tot["matmul_ms"]
+        if all("device_ms" in r for r in t):
+            entry["device_ms"] = sum(r["device_ms"] * r["sites"] for r in t)
+            entry["device_share"] = tot["bound_ms"] / entry["device_ms"]
         entry["per"] = per
         if name == "action_apply":
             entry["redesigned"] = ("one gated A tile per row strip, a "
@@ -1527,14 +1594,16 @@ def kernel_table(checks, timings, launches):
         entry["sites"] = [
             {k: r[k] for k in ("S", "C", "F", "sites", "ms", "plain_ms", yard,
                                "bound_ms", "bound_by", "roofline_share",
-                               "route", "grid")
+                               "device_ms", "device_share",
+                               "device_ms_by_kernel", "route", "grid")
              if k in r} for r in t]
         table.append(entry)
     t = [r for r in timings if r["kernel"] == "tsm_shift"]
     c = [r for r in checks if r["kernel"] == "tsm_shift"]
     tot = {k: sum(r[k] * r["sites"] for r in t)
            for k in ("ms_forward", "ms_reverse", "plain_ms", "bound_ms",
-                     "library_ms_forward", "library_ms_reverse")}
+                     "library_ms_forward", "library_ms_reverse",
+                     "device_ms_forward", "device_ms_reverse")}
     by_path = {p: v["tsm_shift"] for p, v in launches.items()
                if v.get("tsm_shift")}
     table.append(dict(
@@ -1549,6 +1618,9 @@ def kernel_table(checks, timings, launches):
         max_rel_err=max(r["max_rel_err"] for r in c),
         ms=tot["ms_forward"] + tot["ms_reverse"],
         ms_forward=tot["ms_forward"], ms_reverse=tot["ms_reverse"],
+        device_ms=tot["device_ms_forward"] + tot["device_ms_reverse"],
+        device_share=2 * tot["bound_ms"] / (tot["device_ms_forward"] +
+                                            tot["device_ms_reverse"]),
         plain_ms=2 * tot["plain_ms"], bound_ms=2 * tot["bound_ms"],
         bound_by="bytes",
         library_ms=tot["library_ms_forward"] + tot["library_ms_reverse"],
@@ -1557,7 +1629,9 @@ def kernel_table(checks, timings, launches):
         sites=[{k: r[k] for k in ("S", "C", "sites", "ms_forward",
                                   "ms_reverse", "plain_ms", "bound_ms",
                                   "library_ms_forward", "library_ms_reverse",
-                                  "roofline_share")} for r in t]))
+                                  "device_ms_forward", "device_ms_reverse",
+                                  "roofline_share", "device_share")}
+               for r in t]))
     return table
 
 

@@ -79,6 +79,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ehgr_shift_bwd": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _I, _I, _P],
     },
+    "shift_bwd": {
+        # dtype (bf16 only), x, g, w, dx, part, dw, n, t, s, c, rows,
+        # strips, finish columns, stream
+        "ehgr_shift_bwd_strip": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

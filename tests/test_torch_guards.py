@@ -109,7 +109,9 @@ def _cuda(*shape):
 
 
 @pytest.mark.parametrize("kernel", ["learnable_shift_fwd",
-                                    "learnable_shift_bwd", "action_stats",
+                                    "learnable_shift_bwd",
+                                    "learnable_shift_bwd_strip",
+                                    "action_stats",
                                     "action_stats_window", "action_apply",
                                     "action_apply_strip", "action_prologue",
                                     "action_prologue_window", "tsm_shift"])
@@ -118,7 +120,8 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     the build's error; it neither runs the plain version nor counts.
     ``action_apply_strip``: ``action_apply`` on bf16 operands of its main
     path's route (``csrc/action_apply.cu``); ``action_stats_window`` /
-    ``action_prologue_window`` the same for ``csrc/action_stats.cu``."""
+    ``action_prologue_window`` the same for ``csrc/action_stats.cu``, and
+    ``learnable_shift_bwd_strip`` for ``csrc/shift_bwd.cu``."""
     n, t, s, c, f = 1, 2, 3, 16, 8
 
     def strip(*shape):
@@ -127,6 +130,8 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     args = {"learnable_shift_fwd": (_cuda(n, t, s, c), _cuda(3, c)),
             "learnable_shift_bwd": (_cuda(n, t, s, c), _cuda(n, t, s, c),
                                     _cuda(3, c)),
+            "learnable_shift_bwd_strip": (strip(n, t, s, 64),
+                                          strip(n, t, s, 64), strip(3, 64)),
             "action_stats": (_cuda(n, t, s, c), _cuda(3, c), _cuda(c, 1)),
             "action_apply": (_cuda(n, t, s, c), _cuda(3, c),
                              _cuda(n, t, s, 1), _cuda(n, t, c),
@@ -142,6 +147,7 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
                                        strip(64, 4)),
             "tsm_shift": (_cuda(n, t, s, c), 8)}[kernel]
     mod = {"learnable_shift_fwd": shift, "learnable_shift_bwd": shift,
+           "learnable_shift_bwd_strip": shift,
            "action_stats": action_mega, "action_apply": action_mega,
            "action_apply_strip": action_mega,
            "action_prologue": action_fused, "tsm_shift": tsm_shift,
