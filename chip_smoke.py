@@ -16,8 +16,10 @@ Phases; any miss raises and the run exits nonzero:
    bitwise equal over two calls; and measure how far the TPU kernel's bf16
    running sum of ``pool`` would land from the f32 sum kept here;
 3. hold ``learnable_shift_fwd`` / ``learnable_shift_bwd`` (y, dx, dw)
-   against autograd of the plain shift at the site shapes at 8 clips and
-   the two ragged shapes, fp32 and bf16;
+   against autograd of the plain shift at the site shapes at 8 and at 20
+   clips, the two ragged shapes and two shapes at T=5, fp32 and bf16, the
+   backward's route (``strip``, ``csrc/shift_bwd.cu``, or ``sweep``)
+   printed per shape and its dx and dw bitwise equal over two calls;
 4. hold ``tsm_shift`` forward and reverse bitwise equal to the plain shift
    at the site shapes at 8 clips and two ragged shapes, fp32 and bf16; and
    ``action_prologue`` (x_shift, mc, pool, x3) against its plain version
@@ -34,7 +36,8 @@ Phases; any miss raises and the run exits nonzero:
    ``torch.profiler`` (device time by kernel, idle share);
 6. train, Stage 1: ``make_train_step(stage='mtmm')`` on the full-width
    ``tsn_mtmm`` (``action_fused='vjp'``: the four kernels forward and
-   backward; bf16 compute, f32 params, 8 clips of uint8 rgb and depth,
+   backward, every backward of the shift on its strip kernel; bf16
+   compute, f32 params, 8 clips of uint8 rgb and depth,
    dropout 0.5 from a seeded generator) for a few steps, with the launch
    counters zeroed just before and read after each step; one train step
    traced; each ACTION site in training, kernel region against plain
@@ -60,7 +63,11 @@ Phases; any miss raises and the run exits nonzero:
    the same ``[rows, C] x [C, F]`` (or ``x @ W_p3``) product for the ACTION
    kernels, the grouped ``conv3d`` and its backward for the learnable
    shift; none for the TSM shift) at each site shape with CUDA events,
-   each ACTION kernel beside its route and launch grid.
+   each ACTION kernel beside its route and launch grid; the shift kernels
+   also on the device alone with their inputs cold in L2 (the summed
+   durations of the call's kernels in a ``torch.profiler`` trace, and the
+   span of the call replayed as a CUDA graph), the backward beside its
+   route and strip geometry.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
@@ -155,6 +162,10 @@ HEADS_BF16_SLACK = 2.0
 MEGA_FORWARD = {"action_stats": 16, "action_stats_window": 16,
                 "action_apply": 16, "action_apply_strip": 16}
 PROLOGUE_FORWARD = {"action_prologue": 16, "action_prologue_window": 16}
+# launches of the learnable shift in one MTMM or SD train step: every
+# backward on the strip kernel
+SHIFT_STEP = {"learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
+              "learnable_shift_bwd_strip": 16}
 
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
@@ -327,48 +338,74 @@ def _shift_shapes():
     return [(s, c, k) for (s, c), k in shapes.items()]
 
 
-def _shift_inputs(torch, n, s, c, dtype, gen):
+def _shift_inputs(torch, n, s, c, dtype, gen, t=T):
     def randn(*shape):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-    return randn(n, T, s, c), randn(3, c), randn(n, T, s, c)
+    return randn(n, t, s, c), randn(3, c), randn(n, t, s, c)
 
 
-def check_shift(torch, shk, gen):
+def _shift_check_shapes(n):
+    """(clips, T, S, C) of the learnable-shift checks: the site shapes at
+    TRAIN_CLIPS (the train steps') and at the served batch's ``n`` clips
+    (the strip kernel picks its strip height R from the clip count), the
+    ragged shapes at TRAIN_CLIPS, and the (T, S, C) of T_SHAPES at both
+    clip counts (strips through five frames)."""
+    return ([(k, T, s, c) for k in (TRAIN_CLIPS, n)
+             for s, c, _ in _shift_shapes()] +
+            [(TRAIN_CLIPS, T, s, c) for s, c, _ in RAGGED] +
+            [(k,) + sh[:3] for k in (TRAIN_CLIPS, n) for sh in T_SHAPES])
+
+
+def check_shift(torch, shk, n, gen):
     """``learnable_shift_fwd`` / ``_bwd`` against autograd of the plain
-    shift (in f32 from the same values) at the site shapes at TRAIN_CLIPS
-    clips and the ragged shapes, fp32 and bf16; raises on a miss."""
+    shift (in f32 from the same values) at every shape of
+    ``_shift_check_shapes``, fp32 and bf16, the backward's route (read from
+    its launch counts) printed per shape and its dx and dw bitwise equal
+    over two calls; raises on a miss."""
     results = []
-    shapes = [(s, c) for s, c, _ in _shift_shapes()] + \
-        [(s, c) for s, c, _ in RAGGED]
-    for s, c in shapes:
+    for k, t, s, c in _shift_check_shapes(n):
         for dname in ("float32", "bfloat16"):
-            x, w, g = _shift_inputs(torch, TRAIN_CLIPS, s, c,
-                                    getattr(torch, dname), gen)
+            x, w, g = _shift_inputs(torch, k, s, c, getattr(torch, dname),
+                                    gen, t)
+            bwd = lambda: shk.learnable_shift_bwd(x, g, w)
             got = dict(y=shk.learnable_shift_fwd(x, w))
-            got["dx"], got["dw"] = shk.learnable_shift_bwd(x, g, w)
+            first, route = _launched_route(shk.learnable_shift_bwd, bwd)
+            got["dx"], got["dw"] = first
             want = dict(y=shk.learnable_shift_fwd_plain(x.float(), w.float()))
             want["dx"], want["dw"] = shk.learnable_shift_bwd_plain(
                 x.float(), g.float(), w.float())
             torch.cuda.synchronize()
+            bitwise = _repeat_is_bitwise(torch, first, bwd)
+            geo = shk.strip_geometry(k, s, c) if route == "strip" else {}
+            tail = "" if not geo else (f" R={geo['rows']} "
+                                       f"blocks={geo['blocks']}")
             for name in got:
                 err, rel = _rel_err(got[name], want[name])
                 kernel = "learnable_shift_fwd" if name == "y" \
                     else "learnable_shift_bwd"
                 ok = rel <= SHIFT_TOL[dname] and math.isfinite(err)
-                results.append(dict(kernel=kernel, output=name, S=s, C=c,
-                                    dtype=dname, max_abs_err=err,
+                results.append(dict(kernel=kernel, output=name, clips=k, T=t,
+                                    S=s, C=c, dtype=dname, max_abs_err=err,
                                     max_rel_err=rel, tol=SHIFT_TOL[dname],
                                     ok=ok))
-                print(f"check {kernel:19s} {name:2s} S={s:4d} C={c:4d} "
-                      f"{dname:8s} max_abs_err={err:.3e} rel={rel:.3e} "
-                      f"tol={SHIFT_TOL[dname]:.0e} {'ok' if ok else 'MISS'}",
-                      flush=True)
+                more = ""
+                if kernel == "learnable_shift_bwd":
+                    results[-1].update(route=route, bitwise_repeat=bitwise)
+                    more = f" {route}{tail} repeat bitwise {bitwise}"
+                print(f"check {kernel:19s} {name:2s} n={k} T={t} S={s:4d} "
+                      f"C={c:4d} {dname:8s} max_abs_err={err:.3e} "
+                      f"rel={rel:.3e} tol={SHIFT_TOL[dname]:.0e} "
+                      f"{'ok' if ok else 'MISS'}{more}", flush=True)
                 if not ok:
                     raise AssertionError(
                         f"{kernel}.{name} disagrees with its plain version "
-                        f"at S={s} C={c} {dname}: rel {rel:.3e} > "
-                        f"{SHIFT_TOL[dname]}")
-            del x, w, g, got, want
+                        f"at n={k} T={t} S={s} C={c} {dname}: rel {rel:.3e} "
+                        f"> {SHIFT_TOL[dname]}")
+            if not bitwise:
+                raise AssertionError(f"learnable_shift_bwd ({route}) differs "
+                                     f"between two calls at n={k} T={t} "
+                                     f"S={s} C={c} {dname}")
+            del x, w, g, got, want, first
     return results
 
 
@@ -433,7 +470,9 @@ def build_models(torch, seed, frames):
 def _counters():
     """Kernel name -> (wrapper or dict, attribute or key) of its launch
     counter; ``tsm_shift`` counts both directions, ``tsm_shift_reverse`` the
-    reverse launches among them; ``action_apply`` counts every route,
+    reverse launches among them; ``learnable_shift_bwd`` counts every route,
+    ``learnable_shift_bwd_strip`` its main path's (``csrc/shift_bwd.cu``)
+    among them; ``action_apply`` counts every route,
     ``action_apply_strip`` its main path's route (``csrc/action_apply.cu``)
     among them, and ``action_stats_window`` / ``action_prologue_window``
     those of the window kernel (``csrc/action_stats.cu``)."""
@@ -444,6 +483,8 @@ def _counters():
 
     return {"learnable_shift_fwd": (shk.learnable_shift_fwd, "launches"),
             "learnable_shift_bwd": (shk.learnable_shift_bwd, "launches"),
+            "learnable_shift_bwd_strip": (
+                shk.learnable_shift_bwd.route_launches, "strip"),
             "action_stats": (mega.action_stats, "launches"),
             "action_stats_window": (mega.action_stats.route_launches,
                                     "window"),
@@ -719,9 +760,8 @@ def train(torch, seed):
     full-width ``tsn_mtmm`` in bf16, ``action_fused='vjp'`` (16 sites: 16
     launches of each of the four kernels a step)."""
     model = _train_model(torch, seed, "vjp", torch.bfloat16, 0.5)
-    return run_steps(torch, "train", model, "mtmm", seed, {
-        "learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
-        **MEGA_FORWARD})
+    return run_steps(torch, "train", model, "mtmm", seed,
+                     {**SHIFT_STEP, **MEGA_FORWARD})
 
 
 def _frozen_bn_state(torch, seed, batch, arch="tsn_mtmm"):
@@ -1250,14 +1290,15 @@ def _time_ms(torch, fn, reps=20):
 
 
 def _device_times(torch, fn, reps=10):
-    """Device-only time of one ``fn()`` call with its inputs cold in L2:
-    the call's launches captured once as a CUDA graph and replayed ``reps``
-    times, each replay after a write of FLUSH_BYTES, CUDA events around the
-    replay alone (one host call enqueues it while the flush still runs, so
-    no host time falls between the events; the gaps between the call's own
-    kernels do).  Returns (ms, ms by kernel name: each kernel's mean device
-    duration a call, from a ``torch.profiler`` trace of ``reps`` direct
-    calls, each after the same flush)."""
+    """Device-only times of one ``fn()`` call with its inputs cold in L2
+    (each call after a write of FLUSH_BYTES).  Returns (ms, graph_ms, ms by
+    kernel name): ``ms`` sums the durations of the call's kernels as a
+    ``torch.profiler`` trace of ``reps`` calls records them on the card
+    (by name: each kernel's mean a call); ``graph_ms`` is the span of the
+    call's launches captured once as a CUDA graph and replayed, CUDA events
+    around the replay alone (one host call enqueues it while the flush still
+    runs, so no host time falls between the events; the graph's launch and
+    the gaps between its kernels do)."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
@@ -1278,7 +1319,7 @@ def _device_times(torch, fn, reps=10):
         graph.replay()
         b.record()
     torch.cuda.synchronize()
-    ms = sum(a.elapsed_time(b) for a, b in marks) / reps
+    graph_ms = sum(a.elapsed_time(b) for a, b in marks) / reps
     del graph
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -1295,7 +1336,9 @@ def _device_times(torch, fn, reps=10):
             by_name[name] = by_name.get(name, 0.0) + getattr(
                 e, "self_device_time_total",
                 getattr(e, "self_cuda_time_total", 0)) / reps / 1e3
-    return ms, by_name
+    if not by_name:
+        raise AssertionError("the profiler recorded no kernel of the call")
+    return sum(by_name.values()), graph_ms, by_name
 
 
 def _bound_ms(nbytes, flops, dname):
@@ -1381,7 +1424,12 @@ def time_shift(torch, shk, gen):
     conv3d; its ``convolution_backward`` for dx and dw).  Bound: the bytes
     each function must move once (fwd reads x and writes y, bwd reads x and
     g and writes dx, plus w and dw) at 3.35 TB/s, beside its f32 FMAs on
-    the CUDA cores (5 flops/element fwd, 11 bwd) at 67 TFLOP/s."""
+    the CUDA cores (5 flops/element fwd, 11 bwd) at 67 TFLOP/s.  Each
+    kernel also on the device alone, its inputs cold in L2
+    (``_device_times``; the share of the bound is read from that time), the
+    backward's route and strip geometry, and beside it the backward's
+    earlier design (route ``'sweep'``, ``csrc/shift.cu``) on the same
+    inputs, timed both ways."""
     rows_out = []
     for s, c, count in _shift_shapes():
         x, w, g = _shift_inputs(torch, TRAIN_CLIPS, s, c, torch.bfloat16, gen)
@@ -1416,16 +1464,38 @@ def time_shift(torch, shk, gen):
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      ms=_time_ms(torch, fk), plain_ms=_time_ms(torch, fp),
                      library_ms=_time_ms(torch, fl))
-            r["device_ms"], r["device_ms_by_kernel"] = _device_times(
-                torch, fk)
+            r["device_ms"], r["graph_ms"], r["device_ms_by_kernel"] = \
+                _device_times(torch, fk)
             r["roofline_share"] = bound / r["ms"]
             r["device_share"] = bound / r["device_ms"]
+            extra = ""
+            if kernel == "learnable_shift_bwd":
+                # the earlier design on the same inputs: route 'sweep'
+                sweep = lambda: shk.bwd_sweep(x, g, w)
+                if _rel_err(sweep()[0], fk()[0])[1] > SHIFT_TOL["bfloat16"]:
+                    raise AssertionError("the sweep route computes another "
+                                         "dx than the strip route")
+                r["sweep_ms"] = _time_ms(torch, sweep)
+                r["sweep_device_ms"], r["sweep_graph_ms"], \
+                    r["sweep_device_ms_by_kernel"] = _device_times(torch,
+                                                                   sweep)
+                extra = (f" sweep: ms={r['sweep_ms']:.4f} device_ms="
+                         f"{r['sweep_device_ms']:.4f} graph_ms="
+                         f"{r['sweep_graph_ms']:.4f}")
+                r["route"] = _launched_route(shk.learnable_shift_bwd, fk)[1]
+                extra = f" route={r['route']}" + extra
+                if r["route"] == "strip":
+                    g_ = r["grid"] = shk.strip_geometry(TRAIN_CLIPS, s, c)
+                    extra += (f" R={g_['rows']} strips={g_['strips']} "
+                              f"blocks={g_['blocks']} finish_blocks="
+                              f"{g_['finish_blocks']}")
             rows_out.append(r)
             print(f"time {kernel:19s} S={s:4d} C={c:4d} ms={r['ms']:.4f} "
-                  f"device_ms={r['device_ms']:.4f} bound={bound:.4f} "
+                  f"device_ms={r['device_ms']:.4f} graph_ms="
+                  f"{r['graph_ms']:.4f} bound={bound:.4f} "
                   f"({r['bound_by']}) share={r['device_share']:.3f} "
                   f"plain={r['plain_ms']:.4f} "
-                  f"library={r['library_ms']:.4f} device_ms_by_kernel="
+                  f"library={r['library_ms']:.4f}{extra} device_ms_by_kernel="
                   f"{r['device_ms_by_kernel']}", flush=True)
         del x, w, g, x5, g5, wc
     return rows_out
@@ -1438,7 +1508,8 @@ def time_tsm(torch, tk, gen):
     one-hot taps (flipped in time for the reverse), which computes the same
     function.  Bound: the bytes the copy must move once at 3.35 TB/s (write
     y; read x except the 2*fold edge channels at the clip's first and last
-    frame, which are zeros); it does no arithmetic."""
+    frame, which are zeros); it does no arithmetic.  Each direction also on
+    the device alone, its input cold in L2 (``_device_times``)."""
     from ehgr_tpu_torch.ops.temporal_shift import tsm_shift_init
 
     rows_out = []
@@ -1472,8 +1543,8 @@ def time_tsm(torch, tk, gen):
                  library_bitwise=lib[False]["bitwise"] and
                  lib[True]["bitwise"])
         for name, rev in (("forward", False), ("reverse", True)):
-            r[f"device_ms_{name}"] = _device_times(
-                torch, lambda: tk.tsm_shift(x, FOLD_DIV, reverse=rev))[0]
+            r[f"device_ms_{name}"], r[f"graph_ms_{name}"], _ = _device_times(
+                torch, lambda: tk.tsm_shift(x, FOLD_DIV, reverse=rev))
         r["roofline_share"] = bound / r["ms_forward"]
         r["device_share"] = bound / r["device_ms_forward"]
         rows_out.append(r)
@@ -1539,7 +1610,7 @@ def kernel_table(checks, timings, launches):
     kernels = [
         ("learnable_shift_fwd", "shift.cu", "shift.py:158",
          "train step, 8 clips", "library_ms"),
-        ("learnable_shift_bwd", "shift.cu", "shift.py:158",
+        ("learnable_shift_bwd", "shift_bwd.cu", "shift.py:158",
          "train step, 8 clips", "library_ms"),
         ("action_stats", "action_stats.cu", "action_mega.py:126",
          "forward of the served batch, 20 clips", "matmul_ms"),
@@ -1571,7 +1642,8 @@ def kernel_table(checks, timings, launches):
         if yard == "matmul_ms":
             entry["matmul_ms"] = tot["matmul_ms"]
         if all("device_ms" in r for r in t):
-            entry["device_ms"] = sum(r["device_ms"] * r["sites"] for r in t)
+            for k in ("device_ms", "graph_ms"):
+                entry[k] = sum(r[k] * r["sites"] for r in t)
             entry["device_share"] = tot["bound_ms"] / entry["device_ms"]
         entry["per"] = per
         if name == "action_apply":
@@ -1582,6 +1654,23 @@ def kernel_table(checks, timings, launches):
             entry["launches_strip_by_path"] = {
                 p: v["action_apply_strip"] for p, v in launches.items()
                 if v.get("action_apply_strip")}
+        if name == "learnable_shift_bwd":
+            for k in ("sweep_ms", "sweep_device_ms"):
+                entry[k] = sum(r[k] * r["sites"] for r in t)
+            entry["redesigned"] = ("a block over a strip of one clip and all "
+                                   "T frames, a cp.async ring, dw summed in "
+                                   "a fixed order by a second pass over at "
+                                   "least one block an SM; route 'sweep' "
+                                   "(csrc/shift.cu) for fp32 and C % 64 != 0;"
+                                   " the earlier kernel's time is in "
+                                   "PERF.md's kernel table")
+            entry["launches_strip_by_path"] = {
+                p: v["learnable_shift_bwd_strip"] for p, v in launches.items()
+                if v.get("learnable_shift_bwd_strip")}
+            entry["route_launches_by_path"] = {
+                p: {"strip": v["learnable_shift_bwd_strip"],
+                    "sweep": v[name] - v["learnable_shift_bwd_strip"]}
+                for p, v in launches.items() if v.get(name)}
         if name in ("action_stats", "action_prologue"):
             entry["redesigned"] = ("one sweep with a window over T, a "
                                    "cp.async ring, the product on the "
@@ -1594,8 +1683,10 @@ def kernel_table(checks, timings, launches):
         entry["sites"] = [
             {k: r[k] for k in ("S", "C", "F", "sites", "ms", "plain_ms", yard,
                                "bound_ms", "bound_by", "roofline_share",
-                               "device_ms", "device_share",
-                               "device_ms_by_kernel", "route", "grid")
+                               "device_ms", "graph_ms", "device_share",
+                               "device_ms_by_kernel", "sweep_ms",
+                               "sweep_device_ms", "sweep_graph_ms",
+                               "sweep_device_ms_by_kernel", "route", "grid")
              if k in r} for r in t]
         table.append(entry)
     t = [r for r in timings if r["kernel"] == "tsm_shift"]
@@ -1603,7 +1694,8 @@ def kernel_table(checks, timings, launches):
     tot = {k: sum(r[k] * r["sites"] for r in t)
            for k in ("ms_forward", "ms_reverse", "plain_ms", "bound_ms",
                      "library_ms_forward", "library_ms_reverse",
-                     "device_ms_forward", "device_ms_reverse")}
+                     "device_ms_forward", "device_ms_reverse",
+                     "graph_ms_forward", "graph_ms_reverse")}
     by_path = {p: v["tsm_shift"] for p, v in launches.items()
                if v.get("tsm_shift")}
     table.append(dict(
@@ -1619,6 +1711,7 @@ def kernel_table(checks, timings, launches):
         ms=tot["ms_forward"] + tot["ms_reverse"],
         ms_forward=tot["ms_forward"], ms_reverse=tot["ms_reverse"],
         device_ms=tot["device_ms_forward"] + tot["device_ms_reverse"],
+        graph_ms=tot["graph_ms_forward"] + tot["graph_ms_reverse"],
         device_share=2 * tot["bound_ms"] / (tot["device_ms_forward"] +
                                             tot["device_ms_reverse"]),
         plain_ms=2 * tot["plain_ms"], bound_ms=2 * tot["bound_ms"],
@@ -1693,7 +1786,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     libs = ("action_mega", "action_stats", "action_apply", "shift",
-            "tsm_shift")
+            "shift_bwd", "tsm_shift")
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         list(pool.map(lambda name: build(name, verbose=True), libs))
     for name in libs:                              # -Xptxas -v printed
@@ -1718,7 +1811,7 @@ def main(argv=None) -> int:
 
     checks, pool_acc = phase("check_action", check_kernels, torch, mega, n,
                              gen)
-    checks += phase("check_shift", check_shift, torch, shk, gen)
+    checks += phase("check_shift", check_shift, torch, shk, n, gen)
     checks += phase("check_tsm", check_tsm, torch, tk, gen)
     checks += phase("check_prologue", check_prologue, torch, fused, mega, n,
                     gen)
@@ -1759,8 +1852,7 @@ def main(argv=None) -> int:
     del stage1
     sd_trained, _ = phase("sd_train", run_steps, torch, "sd_train",
                           sd_model, "sd", args.seed,
-                          {"learnable_shift_fwd": 16,
-                           "learnable_shift_bwd": 16, **MEGA_FORWARD})
+                          {**SHIFT_STEP, **MEGA_FORWARD})
     sd_state = {k: v.detach().clone()
                 for k, v in sd_model.state_dict().items()}
     del sd_model

@@ -156,32 +156,49 @@ def learnable_shift_bwd(x4: torch.Tensor, g4: torch.Tensor, w: torch.Tensor
     check_operands("learnable_shift_bwd", x4, g4=g4, w=w)
     if x4.device.type == "cpu":
         return learnable_shift_bwd_plain(x4, g4, w)
-    n, t, s, c = x4.shape
-    route = bwd_route(x4.dtype, c, all(v.data_ptr() % 16 == 0
-                                       for v in (x4, g4, w)))
-    load("shift_bwd" if route == "strip" else "shift")   # a failed build
-    dx = torch.empty_like(x4)                            # raises here
-    dw = torch.empty_like(w)
-    ptrs = (x4.data_ptr(), g4.data_ptr(), w.data_ptr(), dx.data_ptr())
-    if route == "strip":
-        geo = strip_geometry(n, s, c)
-        part = x4.new_empty((geo["parts"], 3, c), dtype=torch.float32)
-        launch("shift_bwd", "ehgr_shift_bwd_strip", x4, *ptrs,
-               part.data_ptr(), dw.data_ptr(), n, t, s, c, geo["rows"],
-               geo["strips"], geo["finish_cols"])
-    else:
-        vec = _vec(c, x4, g4, w, dx)
-        bx, by, gx, gy = geometry(n, s, c, vec)
-        part = x4.new_empty((gy, 3, c), dtype=torch.float32)
-        launch("shift", "ehgr_shift_bwd", x4, *ptrs, part.data_ptr(),
-               dw.data_ptr(), n, t, s, c, vec, bx, by, gx, gy)
+    route = bwd_route(x4.dtype, x4.shape[-1],
+                      all(v.data_ptr() % 16 == 0 for v in (x4, g4, w)))
+    out = (bwd_strip if route == "strip" else bwd_sweep)(x4, g4, w)
     learnable_shift_bwd.launches += 1
     learnable_shift_bwd.route_launches[route] += 1
-    return dx, dw
+    return out
 
 
 learnable_shift_bwd.launches = 0
 learnable_shift_bwd.route_launches = dict(strip=0, sweep=0)
+
+
+def bwd_strip(x4: torch.Tensor, g4: torch.Tensor, w: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route ``'strip'`` of ``learnable_shift_bwd`` on checked CUDA
+    operands that ``bwd_route`` sends there (counts nothing)."""
+    load("shift_bwd")                  # a failed build raises here
+    n, t, s, c = x4.shape
+    dx, dw = torch.empty_like(x4), torch.empty_like(w)
+    geo = strip_geometry(n, s, c)
+    part = x4.new_empty((geo["parts"], 3, c), dtype=torch.float32)
+    launch("shift_bwd", "ehgr_shift_bwd_strip", x4, x4.data_ptr(),
+           g4.data_ptr(), w.data_ptr(), dx.data_ptr(), part.data_ptr(),
+           dw.data_ptr(), n, t, s, c, geo["rows"], geo["strips"],
+           geo["finish_cols"])
+    return dx, dw
+
+
+def bwd_sweep(x4: torch.Tensor, g4: torch.Tensor, w: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route ``'sweep'`` of ``learnable_shift_bwd`` on checked CUDA
+    operands: ``shift_sweep<..., true>`` and ``dw_reduce`` of
+    ``csrc/shift.cu`` (counts nothing; takes any dtype and C)."""
+    load("shift")                      # a failed build raises here
+    n, t, s, c = x4.shape
+    dx, dw = torch.empty_like(x4), torch.empty_like(w)
+    vec = _vec(c, x4, g4, w, dx)
+    bx, by, gx, gy = geometry(n, s, c, vec)
+    part = x4.new_empty((gy, 3, c), dtype=torch.float32)
+    launch("shift", "ehgr_shift_bwd", x4, x4.data_ptr(), g4.data_ptr(),
+           w.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), n, t,
+           s, c, vec, bx, by, gx, gy)
+    return dx, dw
 
 
 class LearnableShift(torch.autograd.Function):
