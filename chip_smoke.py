@@ -65,9 +65,8 @@ Phases; any miss raises and the run exits nonzero:
    shift; none for the TSM shift) at each site shape with CUDA events,
    each ACTION kernel beside its route and launch grid; the shift kernels
    also on the device alone with their inputs cold in L2 (the summed
-   durations of the call's kernels in a ``torch.profiler`` trace, and the
-   span of the call replayed as a CUDA graph), the backward beside its
-   route and strip geometry.
+   durations of the call's kernels in a ``torch.profiler`` trace), the
+   backward beside its route and strip geometry and its earlier design.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
@@ -1290,38 +1289,16 @@ def _time_ms(torch, fn, reps=20):
 
 
 def _device_times(torch, fn, reps=10):
-    """Device-only times of one ``fn()`` call with its inputs cold in L2
-    (each call after a write of FLUSH_BYTES).  Returns (ms, graph_ms, ms by
-    kernel name): ``ms`` sums the durations of the call's kernels as a
-    ``torch.profiler`` trace of ``reps`` calls records them on the card
-    (by name: each kernel's mean a call); ``graph_ms`` is the span of the
-    call's launches captured once as a CUDA graph and replayed, CUDA events
-    around the replay alone (one host call enqueues it while the flush still
-    runs, so no host time falls between the events; the graph's launch and
-    the gaps between its kernels do)."""
+    """Device-only time of one ``fn()`` call with its inputs cold in L2:
+    the summed durations of the call's kernels as a ``torch.profiler``
+    trace of ``reps`` calls records them on the card, each call after a
+    write of FLUSH_BYTES (no host time, no gap between launches).  Returns
+    (ms, ms by kernel name: each kernel's mean a call)."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()                                  # built, and warm on a side stream
-    torch.cuda.current_stream().wait_stream(side)
+    fn()                                      # built and warm
     torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    marks = [(torch.cuda.Event(enable_timing=True),
-              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
-    for a, b in marks:
-        flush.fill_(1.0)
-        a.record()
-        graph.replay()
-        b.record()
-    torch.cuda.synchronize()
-    graph_ms = sum(a.elapsed_time(b) for a, b in marks) / reps
-    del graph
-
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
@@ -1338,7 +1315,7 @@ def _device_times(torch, fn, reps=10):
                 getattr(e, "self_cuda_time_total", 0)) / reps / 1e3
     if not by_name:
         raise AssertionError("the profiler recorded no kernel of the call")
-    return sum(by_name.values()), graph_ms, by_name
+    return sum(by_name.values()), by_name
 
 
 def _bound_ms(nbytes, flops, dname):
@@ -1464,8 +1441,8 @@ def time_shift(torch, shk, gen):
                      bound_by="bytes" if t_bytes >= t_ops else "operations",
                      ms=_time_ms(torch, fk), plain_ms=_time_ms(torch, fp),
                      library_ms=_time_ms(torch, fl))
-            r["device_ms"], r["graph_ms"], r["device_ms_by_kernel"] = \
-                _device_times(torch, fk)
+            r["device_ms"], r["device_ms_by_kernel"] = _device_times(
+                torch, fk)
             r["roofline_share"] = bound / r["ms"]
             r["device_share"] = bound / r["device_ms"]
             extra = ""
@@ -1476,12 +1453,10 @@ def time_shift(torch, shk, gen):
                     raise AssertionError("the sweep route computes another "
                                          "dx than the strip route")
                 r["sweep_ms"] = _time_ms(torch, sweep)
-                r["sweep_device_ms"], r["sweep_graph_ms"], \
-                    r["sweep_device_ms_by_kernel"] = _device_times(torch,
-                                                                   sweep)
+                r["sweep_device_ms"], r["sweep_device_ms_by_kernel"] = \
+                    _device_times(torch, sweep)
                 extra = (f" sweep: ms={r['sweep_ms']:.4f} device_ms="
-                         f"{r['sweep_device_ms']:.4f} graph_ms="
-                         f"{r['sweep_graph_ms']:.4f}")
+                         f"{r['sweep_device_ms']:.4f}")
                 r["route"] = _launched_route(shk.learnable_shift_bwd, fk)[1]
                 extra = f" route={r['route']}" + extra
                 if r["route"] == "strip":
@@ -1491,8 +1466,7 @@ def time_shift(torch, shk, gen):
                               f"{g_['finish_blocks']}")
             rows_out.append(r)
             print(f"time {kernel:19s} S={s:4d} C={c:4d} ms={r['ms']:.4f} "
-                  f"device_ms={r['device_ms']:.4f} graph_ms="
-                  f"{r['graph_ms']:.4f} bound={bound:.4f} "
+                  f"device_ms={r['device_ms']:.4f} bound={bound:.4f} "
                   f"({r['bound_by']}) share={r['device_share']:.3f} "
                   f"plain={r['plain_ms']:.4f} "
                   f"library={r['library_ms']:.4f}{extra} device_ms_by_kernel="
@@ -1543,8 +1517,8 @@ def time_tsm(torch, tk, gen):
                  library_bitwise=lib[False]["bitwise"] and
                  lib[True]["bitwise"])
         for name, rev in (("forward", False), ("reverse", True)):
-            r[f"device_ms_{name}"], r[f"graph_ms_{name}"], _ = _device_times(
-                torch, lambda: tk.tsm_shift(x, FOLD_DIV, reverse=rev))
+            r[f"device_ms_{name}"] = _device_times(
+                torch, lambda: tk.tsm_shift(x, FOLD_DIV, reverse=rev))[0]
         r["roofline_share"] = bound / r["ms_forward"]
         r["device_share"] = bound / r["device_ms_forward"]
         rows_out.append(r)
@@ -1642,8 +1616,7 @@ def kernel_table(checks, timings, launches):
         if yard == "matmul_ms":
             entry["matmul_ms"] = tot["matmul_ms"]
         if all("device_ms" in r for r in t):
-            for k in ("device_ms", "graph_ms"):
-                entry[k] = sum(r[k] * r["sites"] for r in t)
+            entry["device_ms"] = sum(r["device_ms"] * r["sites"] for r in t)
             entry["device_share"] = tot["bound_ms"] / entry["device_ms"]
         entry["per"] = per
         if name == "action_apply":
@@ -1660,13 +1633,10 @@ def kernel_table(checks, timings, launches):
             entry["redesigned"] = ("a block over a strip of one clip and all "
                                    "T frames, a cp.async ring, dw summed in "
                                    "a fixed order by a second pass over at "
-                                   "least one block an SM; route 'sweep' "
-                                   "(csrc/shift.cu) for fp32 and C % 64 != 0;"
-                                   " the earlier kernel's time is in "
-                                   "PERF.md's kernel table")
-            entry["launches_strip_by_path"] = {
-                p: v["learnable_shift_bwd_strip"] for p, v in launches.items()
-                if v.get("learnable_shift_bwd_strip")}
+                                   "least one block an SM; sweep_ms and "
+                                   "sweep_device_ms: the earlier design, "
+                                   "route 'sweep' (csrc/shift.cu, fp32 and "
+                                   "C % 64 != 0), on the same inputs")
             entry["route_launches_by_path"] = {
                 p: {"strip": v["learnable_shift_bwd_strip"],
                     "sweep": v[name] - v["learnable_shift_bwd_strip"]}
@@ -1683,10 +1653,10 @@ def kernel_table(checks, timings, launches):
         entry["sites"] = [
             {k: r[k] for k in ("S", "C", "F", "sites", "ms", "plain_ms", yard,
                                "bound_ms", "bound_by", "roofline_share",
-                               "device_ms", "graph_ms", "device_share",
+                               "device_ms", "device_share",
                                "device_ms_by_kernel", "sweep_ms",
-                               "sweep_device_ms", "sweep_graph_ms",
-                               "sweep_device_ms_by_kernel", "route", "grid")
+                               "sweep_device_ms", "sweep_device_ms_by_kernel",
+                               "route", "grid")
              if k in r} for r in t]
         table.append(entry)
     t = [r for r in timings if r["kernel"] == "tsm_shift"]
@@ -1694,8 +1664,7 @@ def kernel_table(checks, timings, launches):
     tot = {k: sum(r[k] * r["sites"] for r in t)
            for k in ("ms_forward", "ms_reverse", "plain_ms", "bound_ms",
                      "library_ms_forward", "library_ms_reverse",
-                     "device_ms_forward", "device_ms_reverse",
-                     "graph_ms_forward", "graph_ms_reverse")}
+                     "device_ms_forward", "device_ms_reverse")}
     by_path = {p: v["tsm_shift"] for p, v in launches.items()
                if v.get("tsm_shift")}
     table.append(dict(
@@ -1711,7 +1680,6 @@ def kernel_table(checks, timings, launches):
         ms=tot["ms_forward"] + tot["ms_reverse"],
         ms_forward=tot["ms_forward"], ms_reverse=tot["ms_reverse"],
         device_ms=tot["device_ms_forward"] + tot["device_ms_reverse"],
-        graph_ms=tot["graph_ms_forward"] + tot["graph_ms_reverse"],
         device_share=2 * tot["bound_ms"] / (tot["device_ms_forward"] +
                                             tot["device_ms_reverse"]),
         plain_ms=2 * tot["plain_ms"], bound_ms=2 * tot["bound_ms"],

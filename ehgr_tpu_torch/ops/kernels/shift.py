@@ -117,8 +117,9 @@ def learnable_shift_bwd_plain(x4: torch.Tensor, g4: torch.Tensor,
 def bwd_route(dtype: torch.dtype, c: int, aligned: bool) -> str:
     """The kernel that computes ``learnable_shift_bwd``, a pure function of
     the operands: ``'strip'`` (``csrc/shift_bwd.cu``: bf16 with C % 64 == 0
-    and x, g, w, dx 16-byte aligned, which every ResNet-50 site meets) or
-    ``'sweep'`` (``csrc/shift.cu``: fp32, and any other bf16)."""
+    and x, g, w 16-byte aligned, which every ResNet-50 site meets; dx is
+    allocated aligned) or ``'sweep'`` (``csrc/shift.cu``: fp32, and any
+    other bf16)."""
     if dtype == torch.bfloat16 and aligned and c % _CHUNK == 0:
         return "strip"
     return "sweep"
@@ -142,8 +143,7 @@ def strip_geometry(n: int, s: int, c: int) -> dict:
     cols = 1 << min(5, chunks.bit_length() - 1)
     return dict(rows=rows, subs=-(-rows // _SUB_ROWS), strips=strips,
                 chunks=chunks, blocks=n * strips * chunks, parts=n * strips,
-                threads=_THREADS, finish_cols=cols,
-                finish_blocks=-(-3 * c // cols))
+                finish_cols=cols, finish_blocks=-(-3 * c // cols))
 
 
 def learnable_shift_bwd(x4: torch.Tensor, g4: torch.Tensor, w: torch.Tensor
@@ -174,7 +174,8 @@ def bwd_strip(x4: torch.Tensor, g4: torch.Tensor, w: torch.Tensor
     operands that ``bwd_route`` sends there (counts nothing)."""
     load("shift_bwd")                  # a failed build raises here
     n, t, s, c = x4.shape
-    dx, dw = torch.empty_like(x4), torch.empty_like(w)
+    dx = torch.empty_like(x4)
+    dw = torch.empty_like(w)
     geo = strip_geometry(n, s, c)
     part = x4.new_empty((geo["parts"], 3, c), dtype=torch.float32)
     launch("shift_bwd", "ehgr_shift_bwd_strip", x4, x4.data_ptr(),
@@ -191,13 +192,14 @@ def bwd_sweep(x4: torch.Tensor, g4: torch.Tensor, w: torch.Tensor
     ``csrc/shift.cu`` (counts nothing; takes any dtype and C)."""
     load("shift")                      # a failed build raises here
     n, t, s, c = x4.shape
-    dx, dw = torch.empty_like(x4), torch.empty_like(w)
+    dx = torch.empty_like(x4)
+    dw = torch.empty_like(w)
     vec = _vec(c, x4, g4, w, dx)
     bx, by, gx, gy = geometry(n, s, c, vec)
     part = x4.new_empty((gy, 3, c), dtype=torch.float32)
     launch("shift", "ehgr_shift_bwd", x4, x4.data_ptr(), g4.data_ptr(),
-           w.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(), n, t,
-           s, c, vec, bx, by, gx, gy)
+           w.data_ptr(), dx.data_ptr(), part.data_ptr(), dw.data_ptr(),
+           n, t, s, c, vec, bx, by, gx, gy)
     return dx, dw
 
 

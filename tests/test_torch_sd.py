@@ -18,7 +18,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from flax.traverse_util import flatten_dict
+from flax.traverse_util import flatten_dict, unflatten_dict
 
 from ehgr_tpu.models.decoders import Scala as JScala
 from ehgr_tpu.models.torch_import import export_state_dict
@@ -38,11 +38,15 @@ from ehgr_tpu_torch.train.checkpoints import merge_state_dict
 from ehgr_tpu_torch.train.optim import label_params
 
 from test_regression import GOLD_FINAL, GOLD_MID1
+from test_torch_train import one_thread
+from test_torch_train import single_thread  # noqa: F401  (a fixture)
 
 CLS, T, HW = 5, 4, 32
 TOL = dict(rtol=1e-4, atol=1e-4)
 MID_TOL = dict(rtol=1e-4, atol=1e-6)
 OUT_NAMES = ("logits", "mid1", "mid2", "mid3", "final_fea", "f1", "f2", "f3")
+# every test here runs the port forward or builds it, never a trajectory
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _x():
@@ -73,13 +77,50 @@ def sd():
 
 
 @pytest.fixture(scope="module")
-def middles():
-    """JAX ``tsn_middleK`` for K = 1, 2, 3: flat variables and logits."""
+def middles(sd):
+    """JAX ``tsn_middleK`` for K = 1, 2, 3: variables, flat variables and
+    logits.  Each middle's variable tree is a subtree of ``tsn_sd``'s (the
+    same paths and shapes, so the same init), so its variables are taken
+    from the ``sd`` fixture's instead of a second init."""
+    flat_sd = flatten_dict(sd[1])
+    x = jnp.asarray(_x())
     out = {}
     for k in (1, 2, 3):
-        _, v, logits = _jax_model(f"tsn_middle{k}")
+        model = j_variant(f"tsn_middle{k}", num_class=CLS, num_segments=T,
+                          temporal="action", partial_bn=False)
+        shapes = flatten_dict(jax.eval_shape(lambda: model.init(
+            {"params": jax.random.key(42)}, x, train=False)))
+        assert all(flat_sd[p].shape == a.shape for p, a in shapes.items())
+        v = unflatten_dict({p: flat_sd[p] for p in shapes})
+        logits = jax.jit(lambda vv, xx: model.apply(vv, xx, train=False))(
+            v, x)
         out[k] = (v, _flat(v), np.asarray(logits))
     return out
+
+
+@pytest.fixture(scope="module")
+def sd_prologue(sd):
+    """The port's ``tsn_sd`` in mode 'prologue' from the JAX variables, one
+    for the module: its state_dict and its outputs on the golden input."""
+    m = _port("tsn_sd", sd[2], "prologue")
+    with torch.no_grad(), one_thread():     # as the tests it serves run
+        return m.state_dict(), m(torch.from_numpy(_x()))
+
+
+def _mtmm_variables(flat_sd):
+    """A ``tsn_mtmm`` variable tree (its paths and shapes, without an init):
+    ``flat_sd``'s values where ``tsn_sd`` has the path, the global decoder
+    from a seeded generator, every leaf plus 0.5 so that none equals the
+    SD model's."""
+    model = j_variant("tsn_mtmm", num_class=CLS, num_segments=T,
+                      temporal="action", partial_bn=False)
+    shapes = flatten_dict(jax.eval_shape(lambda: model.init(
+        {"params": jax.random.key(42)}, jnp.asarray(_x()), train=False)))
+    rng = np.random.default_rng(3)
+    return unflatten_dict({
+        p: jnp.asarray((np.asarray(flat_sd[p]) if p in flat_sd else
+                        rng.standard_normal(a.shape).astype(a.dtype)) + 0.5)
+        for p, a in shapes.items()})
 
 
 def _port(arch, flat=None, mode=None, **kw):
@@ -214,20 +255,18 @@ class TestMiddle:
         np.testing.assert_allclose(got, want, **MID_TOL)
 
     @pytest.mark.parametrize("k", [1, 2, 3])
-    def test_from_tsn_sd_equals_exit(self, sd, k):
+    def test_from_tsn_sd_equals_exit(self, sd_prologue, k):
         """Loaded from ``tsn_sd`` with ``merge_state_dict``, ``tsn_middleK``
         gives exactly the SD model's exit K; every one of its tensors came
         from the source."""
-        _, _, flat, _ = sd
-        full = _port("tsn_sd", flat, "prologue")
+        src, full_out = sd_prologue
         mid = _port(f"tsn_middle{k}", mode="prologue",
                     generator=torch.Generator().manual_seed(7))
-        src = full.state_dict()
         skipped = merge_state_dict(mid, src)
         assert set(mid.state_dict()) == set(src) - set(skipped)
-        x = torch.from_numpy(_x())
         with torch.no_grad():
-            torch.testing.assert_close(mid(x), full(x)[k], rtol=0, atol=0)
+            torch.testing.assert_close(mid(torch.from_numpy(_x())),
+                                       full_out[k], rtol=0, atol=0)
 
 
 class TestMergeStateDict:
@@ -239,9 +278,8 @@ class TestMergeStateDict:
         """``tsn_mtmm`` -> ``tsn_sd``: the same skipped keys as
         ``merge_variables`` (the global decoder), the same merged
         weights, and the exits keep their init."""
-        _, v_sd, _, _ = sd
-        _, v_mtmm, _ = _jax_model("tsn_mtmm")
-        v_mtmm = jax.tree_util.tree_map(lambda a: a + 0.5, v_mtmm)
+        _, v_sd, flat_sd, _ = sd
+        v_mtmm = _mtmm_variables(flat_sd)
         merged, want = self._jax_skipped(v_sd, v_mtmm)
         assert want and all(k.startswith("global_decoder.") for k in want)
         m = _port("tsn_sd", _flat(v_sd))
@@ -251,9 +289,8 @@ class TestMergeStateDict:
         for k, t in m.state_dict().items():
             torch.testing.assert_close(t, want_sd[k], rtol=0, atol=0,
                                        msg=k)
-        assert torch.equal(m.scala1[0].op[0].weight,
-                           _port("tsn_sd", _flat(v_sd)).scala1[0].op[0]
-                           .weight)
+        assert torch.equal(m.scala1[0].op[0].weight, state_dict_from_jax(
+            flat_sd)["scala1.0.op.0.weight"])
 
     @pytest.mark.parametrize("k", [1, 2, 3])
     def test_sd_into_middle(self, sd, middles, k):
@@ -338,14 +375,15 @@ class TestFourHeadScorer:
         frames = rng.integers(0, 256, (2, 2, T, HW, HW, 3), dtype=np.uint8)
         x = j_normalize(jnp.asarray(frames), dtype=jnp.float32)
         x = x.reshape((4, T) + x.shape[3:])
-        outs = model.apply(v, x, train=False)
+        apply = jax.jit(lambda vv, xx: model.apply(vv, xx, train=False))
+        outs = apply(v, x)
         params = jax.tree_util.tree_map(lambda a: a, v["params"])
         for name, o in zip(("new_fc", "middle_fc1", "middle_fc2",
                             "middle_fc3"), outs):   # max |logit| to 2
             params[name]["kernel"] = params[name]["kernel"] * (
                 2.0 / float(jnp.abs(o).max()))
         v = {**v, "params": params}
-        outs = model.apply(v, x, train=False)
+        outs = apply(v, x)
         want = [np.asarray(jax.nn.softmax(o, -1).reshape(2, 2, -1).mean(1))
                 for o in outs[:4]]
         m = _port("tsn_sd", _flat(v), "prologue")

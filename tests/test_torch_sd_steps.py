@@ -29,7 +29,9 @@ from ehgr_tpu_torch.train.steps import (create_train_state, make_eval_step,
                                         make_train_step)
 
 from test_torch_train import (MEAN, STD, N, check_trajectory, jax_result,
-                              make_batches, port_run, tiny_resnet)
+                              make_batches, one_thread, port_result,
+                              port_run, tiny_resnet)
+from test_torch_train import single_thread  # noqa: F401  (a fixture)
 
 CLS, T = 5, 4
 # K=3 SD steps: the exits end at 1x1 with 8 values a BN channel, and three
@@ -47,10 +49,8 @@ KINK_UPSTREAM = ("base_model.conv1.", "base_model.bn1.",
 
 
 def _sd_steps(accum, mode, k=3):
-    res = jax_result("tsn_sd", "sd", accum, k=k)
-    port = port_run("tsn_sd", "sd", accum, mode, res[0],
-                    make_batches(0, False, n=N * accum)[:k])
-    return res, port
+    return (jax_result("tsn_sd", "sd", accum, k=k),
+            port_result("tsn_sd", "sd", accum, mode, k=k))
 
 
 class TestSdSteps:
@@ -102,11 +102,7 @@ class TestSdSteps:
         (jax32,), = flatten_dict(mut["intermediates"]).values()
         jax32 = np.asarray(jax32, np.float64).reshape(N * T, -1)
         port = {}
-        # one thread: a float64 CPU convolution over many threads stalls for
-        # minutes when other test processes hold the cores
-        threads = torch.get_num_threads()
-        torch.set_num_threads(1)
-        try:
+        with one_thread():
             for dtype in (torch.float32, torch.float64):
                 with tiny_resnet():
                     m = variant("tsn_sd", num_class=CLS, num_segments=T,
@@ -120,8 +116,6 @@ class TestSdSteps:
                         o.detach().double().reshape(N * T, -1).numpy()))
                 m(normalize_clip(torch.as_tensor(rgb), MEAN, STD,
                                  dtype=torch.float32))
-        finally:
-            torch.set_num_threads(threads)
         f64, f32 = port[torch.float64], port[torch.float32]
         port_err, jax_err = np.abs(f32 - f64), np.abs(jax32 - f64)
         flips = np.argwhere((f32 > 0) != (jax32 > 0))
@@ -135,8 +129,10 @@ class TestSdSteps:
         head and the three exits, live and EMA weights."""
         from ehgr_tpu.train.steps import TrainState
 
-        res, (model, state, _) = _sd_steps(1, "vjp", k=1)
+        res = jax_result("tsn_sd", "sd", 1, k=1)
         batch = make_batches(0, False)[0]
+        model, state, _ = port_run("tsn_sd", "sd", 1, "vjp", res[0],
+                                   [batch])
         jstate = TrainState(
             step=0, params=_nested(res[2]["params"]),
             batch_stats=_nested(res[2]["batch_stats"]), opt_state=None,
@@ -158,6 +154,7 @@ class TestSdSteps:
                     jstate, {k: jnp.asarray(a) for k, a in batch.items()})
             assert got == {k: int(a) for k, a in want.items()}
 
+    @pytest.mark.usefixtures("single_thread")
     def test_joint_stage_raises(self):
         with tiny_resnet():
             m = variant("tsn_sd", num_class=CLS, num_segments=T,

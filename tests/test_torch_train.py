@@ -15,9 +15,14 @@ so a JAX compile stays short.  fp32; each tensor
 within TOL of its max |JAX value| (gradients through training BN are
 differences of large sums, and three steps carry them on), plus, for the
 parameter and EMA deltas, ULPS f32 roundings of the parameter they move (a
-delta of a few roundings is resolved only to one)."""
+delta of a few roundings is resolved only to one).
+
+Each trajectory runs once per configuration and module (``jax_result``,
+``port_result``; the JAX step compiles once), and a one-step check reads
+the first step of the K-step run over the same batches."""
 
 import contextlib
+import copy
 
 import numpy as np
 import pytest
@@ -84,9 +89,10 @@ def _flat(tree, collection):
             for p, a in flatten_dict(jax.device_get(tree)).items()}
 
 
-def jax_run(arch, stage, accum, batches):
-    """The JAX trajectory: initial variables (flat), per-step metrics, the
-    final state's trees (flat) and the eval counts on the last batch."""
+def jax_setup(arch, stage, accum):
+    """The JAX model, its initial variables and train state and the jitted
+    train step of one configuration (the step compiles at its first call;
+    later calls at the same shapes reuse it)."""
     with tiny_resnet():
         model = j_variant(arch, num_class=CLS, num_segments=T,
                           partial_bn=False, dropout=0.0, action_fused="vjp")
@@ -96,35 +102,59 @@ def jax_run(arch, stage, accum, batches):
         tx, _ = j_build_optimizer(
             v["params"], JOptimConfig(lr=LR, lr_steps=LR_STEPS),
             steps_per_epoch=1)
-        state = j_create_state(v, tx)
         step = j_make_train_step(
             model, tx, stage=stage, loss_cfg=JLossConfig(depth_size=DEPTH),
             ema_decay=EMA, mean=MEAN, std=STD, donate=False,
             accum_steps=accum)
-        metrics = []
+    return dict(model=model, v=v, state=j_create_state(v, tx), step=step)
+
+
+def _final(state):
+    return dict(params=_flat(state.params, "params"),
+                batch_stats=_flat(state.batch_stats, "batch_stats"),
+                ema_params=_flat(state.ema_params, "params"),
+                ema_batch_stats=_flat(state.ema_batch_stats, "batch_stats"),
+                momentum=_flat(state.opt_state.momentum, "params"))
+
+
+def jax_run(arch, stage, accum, batches, setup=None):
+    """The JAX trajectory over ``batches`` from the initial variables of
+    ``setup`` (``jax_setup``'s, built here if not given): those variables
+    (flat), the metrics of each step, the last state's trees (flat), the
+    trees after each step, and the last state."""
+    s = setup or jax_setup(arch, stage, accum)
+    state, metrics, finals = s["state"], [], []
+    with tiny_resnet():
         for b in batches:
-            state, m = step(state, {k: jnp.asarray(a) for k, a in b.items()},
-                            jax.random.key(0))
+            state, m = s["step"](state, {k: jnp.asarray(a)
+                                         for k, a in b.items()},
+                                 jax.random.key(0))
             metrics.append({k: float(a) for k, a in m.items()})
-        evals = {}
-        for use_ema in (False, True):
-            ev = j_make_eval_step(model, mean=MEAN, std=STD,
-                                  use_ema=use_ema)
-            evals[use_ema] = {k: int(a) for k, a in ev(
-                state, {k: jnp.asarray(a) for k, a in batches[-1].items()}
-            ).items()}
-    final = dict(params=_flat(state.params, "params"),
-                 batch_stats=_flat(state.batch_stats, "batch_stats"),
-                 ema_params=_flat(state.ema_params, "params"),
-                 ema_batch_stats=_flat(state.ema_batch_stats, "batch_stats"),
-                 momentum=_flat(state.opt_state.momentum, "params"))
+            finals.append(_final(state))
+    v = s["v"]
     return _flat(v["params"], "params") | _flat(v["batch_stats"],
                                                 "batch_stats"), \
-        metrics, final, evals
+        metrics, finals[-1], finals, state
+
+
+def jax_evals(arch, stage, accum):
+    """The JAX eval counts (live and EMA weights) after the K steps of
+    ``jax_result``, on the last batch."""
+    jax_result(arch, stage, accum)
+    setup, run = _JAX[(arch, stage, accum)]
+    batch = make_batches(0, stage == "mtmm", n=N * accum)[K - 1]
+    with tiny_resnet():
+        return {use_ema: {k: int(a) for k, a in j_make_eval_step(
+            setup["model"], mean=MEAN, std=STD, use_ema=use_ema)(
+                run[4], {k: jnp.asarray(a) for k, a in batch.items()}
+            ).items()} for use_ema in (False, True)}
 
 
 def port_run(arch, stage, accum, mode, flat0, batches,
-             dtype=torch.float32):
+             dtype=torch.float32, snapshots=None):
+    """The port's trajectory over ``batches`` from ``flat0``: (model, last
+    state, metrics of each step); ``snapshots``, a list, also gets a copy
+    of the state after each step."""
     with tiny_resnet():
         model = variant(arch, num_class=CLS, num_segments=T,
                         partial_bn=False, dropout=0.0, action_fused=mode,
@@ -142,6 +172,8 @@ def port_run(arch, stage, accum, mode, flat0, batches,
     for b in batches:
         state, m = step(state, b, torch.Generator().manual_seed(0))
         metrics.append({k: float(a) for k, a in m.items()})
+        if snapshots is not None:
+            snapshots.append(copy.deepcopy(state))
     return model, state, metrics
 
 
@@ -159,7 +191,7 @@ def check_trajectory(jax_result, port_result, stage, tol=TOL,
     """Losses within 1e-4 at each step; every leaf of the final state within
     ``tol`` (the momentum within ``momentum_tol`` where given), except the
     leaves whose key starts with one of ``loose[0]``, held to ``loose[1]``."""
-    flat0, j_metrics, final, _ = jax_result
+    flat0, j_metrics, final = jax_result[:3]
     _, state, metrics = port_result
     keys = ("loss", "ce") + (("depth",) if stage == "mtmm" else ())
     for i, (got, want) in enumerate(zip(metrics, j_metrics)):
@@ -202,47 +234,100 @@ def check_trajectory(jax_result, port_result, stage, tol=TOL,
 
 
 _JAX = {}
+_PORT = {}
 
 
 def jax_result(arch, stage, accum, k=K):
-    """The JAX trajectory of ``k`` steps, computed once per configuration
-    and module."""
-    key = (arch, stage, accum, k)
-    if key not in _JAX:
-        _JAX[key] = jax_run(arch, stage, accum, make_batches(
-            0, stage == "mtmm", n=N * accum)[:k])
-    return _JAX[key]
+    """(initial variables, metrics of the first ``k`` steps, the state's
+    trees after step ``k``) of the JAX trajectory, kept per configuration
+    and module: a ``k``-step run is the first ``k`` steps of a longer one
+    over the same batches, and a longer one reuses the compiled step."""
+    key = (arch, stage, accum)
+    setup, run = _JAX.get(key, (None, None))
+    if run is None or len(run[1]) < k:
+        setup = setup or jax_setup(arch, stage, accum)
+        run = jax_run(arch, stage, accum, make_batches(
+            0, stage == "mtmm", n=N * accum)[:k], setup)
+        _JAX[key] = setup, run
+    flat0, metrics, _, finals, _ = run
+    return flat0, metrics[:k], finals[k - 1]
+
+
+def port_result(arch, stage, accum, mode, k=K):
+    """(model, state after step ``k``, metrics of the first ``k`` steps)
+    of the port's trajectory from ``jax_result``'s initial variables, kept
+    per configuration, mode and module like ``jax_result``'s; where a
+    longer run was kept the state is a copy taken after step ``k`` and the
+    model holds the last step's weights."""
+    key = (arch, stage, accum, mode)
+    if key not in _PORT or len(_PORT[key][2]) < k:
+        states = []
+        _PORT[key] = port_run(arch, stage, accum, mode,
+                              jax_result(arch, stage, accum, k)[0],
+                              make_batches(0, stage == "mtmm",
+                                           n=N * accum)[:k],
+                              snapshots=states) + (states,)
+    model, state, metrics, states = _PORT[key]
+    return model, (state if k == len(metrics) else states[k - 1]), \
+        metrics[:k]
+
+
+def jax_setup_of(arch, stage, accum):
+    """``jax_setup`` of the configuration ``jax_result`` keeps (its compiled
+    step reused)."""
+    jax_result(arch, stage, accum, k=1)
+    return _JAX[(arch, stage, accum)][0]
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one thread.  Over many threads a CPU op spins against the
+    other test processes that hold the cores (a float64 run stalls for
+    minutes).  Used where no compared result depends on the thread count:
+    float64 references (their sums move by ~1e-16 with it, far inside
+    every limit they serve) and tests that hold the port against itself.
+    Not for the f32 trajectories against JAX: their kinks move with it."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
+
+
+@pytest.fixture
+def single_thread():
+    """``one_thread`` around a test that holds the port against itself."""
+    with one_thread():
+        yield
 
 
 class TestBaselineSteps:
     @pytest.mark.parametrize("accum,mode", [(1, "vjp"), (2, "vjp"),
                                             (1, None)])
     def test_k_steps_match_jax(self, accum, mode):
-        res = jax_result("tsn", "baseline", accum)
-        port = port_run("tsn", "baseline", accum, mode, res[0],
-                        make_batches(0, False, n=N * accum))
-        check_trajectory(res, port, "baseline", momentum_tol=MOMENTUM_TOL)
+        check_trajectory(jax_result("tsn", "baseline", accum),
+                         port_result("tsn", "baseline", accum, mode),
+                         "baseline", momentum_tol=MOMENTUM_TOL)
 
     @pytest.mark.parametrize("accum", [1, 2])
     def test_first_step_gradients(self, accum):
         """One step: the momentum is the (accumulated) gradient plus weight
         decay, held to TOL like everything else."""
-        res = jax_result("tsn", "baseline", accum, k=1)
-        port = port_run("tsn", "baseline", accum, "vjp", res[0],
-                        make_batches(0, False, n=N * accum)[:1])
-        check_trajectory(res, port, "baseline")
+        check_trajectory(jax_result("tsn", "baseline", accum, k=1),
+                         port_result("tsn", "baseline", accum, "vjp", k=1),
+                         "baseline")
 
     @pytest.mark.parametrize("use_ema", [False, True])
     def test_eval_step_matches_jax(self, use_ema):
-        res = jax_result("tsn", "baseline", 1)
-        batches = make_batches(0, False)
-        model, state, _ = port_run("tsn", "baseline", 1, "vjp", res[0],
-                                   batches)
+        model, state, _ = port_result("tsn", "baseline", 1, "vjp")
         ev = make_eval_step(model, mean=MEAN, std=STD, use_ema=use_ema)
-        got = {k: int(v) for k, v in ev(state, batches[-1]).items()}
-        assert got == res[3][use_ema]
+        got = {k: int(v) for k, v in ev(
+            state, make_batches(0, False)[-1]).items()}
+        assert got == jax_evals("tsn", "baseline", 1)[use_ema]
 
 
+@pytest.mark.usefixtures("single_thread")
 class TestStepGuards:
     def _model(self, **kw):
         with tiny_resnet():

@@ -22,7 +22,8 @@ from ehgr_tpu_torch.models.convert import state_dict_from_jax
 from flax.traverse_util import unflatten_dict
 
 from test_torch_train import (N, check_trajectory, jax_result, jax_run,
-                              make_batches, port_run)
+                              jax_setup_of, make_batches, one_thread,
+                              port_result, port_run)
 
 KINK_TOL = 3e-2
 
@@ -31,18 +32,16 @@ class TestMtmmSteps:
     @pytest.mark.parametrize("accum,mode", [(1, "vjp"), (2, "vjp"),
                                             (1, None)])
     def test_k_steps_match_jax(self, accum, mode):
-        res = jax_result("tsn_mtmm", "mtmm", accum)
-        port = port_run("tsn_mtmm", "mtmm", accum, mode, res[0],
-                        make_batches(0, True, n=N * accum))
-        check_trajectory(res, port, "mtmm", tol=KINK_TOL)
+        port = port_result("tsn_mtmm", "mtmm", accum, mode)
+        check_trajectory(jax_result("tsn_mtmm", "mtmm", accum), port,
+                         "mtmm", tol=KINK_TOL)
         assert all(np.isfinite(m["depth"]) and m["depth"] > 0
                    for m in port[2])
 
     def test_first_step_gradients(self):
-        res = jax_result("tsn_mtmm", "mtmm", 1, k=1)
-        port = port_run("tsn_mtmm", "mtmm", 1, "vjp", res[0],
-                        make_batches(0, True)[:1])
-        check_trajectory(res, port, "mtmm")
+        check_trajectory(jax_result("tsn_mtmm", "mtmm", 1, k=1),
+                         port_result("tsn_mtmm", "mtmm", 1, "vjp", k=1),
+                         "mtmm")
 
     def test_f32_gradients_against_float64(self):
         """One step on the second half of the four-clip batch: the JAX and
@@ -52,10 +51,12 @@ class TestMtmmSteps:
         half = [{k: v[N:] for k, v in make_batches(0, True, n=2 * N)[0]
                  .items()}]
         flat0 = jax_result("tsn_mtmm", "mtmm", 1, k=1)[0]
-        j_mom = state_dict_from_jax(jax_run("tsn_mtmm", "mtmm", 1,
-                                            half)[2]["momentum"])
-        ref = port_run("tsn_mtmm", "mtmm", 1, None, flat0, half,
-                       dtype=torch.float64)[1].opt_state.momentum
+        j_mom = state_dict_from_jax(jax_run(
+            "tsn_mtmm", "mtmm", 1, half,
+            jax_setup_of("tsn_mtmm", "mtmm", 1))[2]["momentum"])
+        with one_thread():
+            ref = port_run("tsn_mtmm", "mtmm", 1, None, flat0, half,
+                           dtype=torch.float64)[1].opt_state.momentum
         mine = port_run("tsn_mtmm", "mtmm", 1, "vjp", flat0,
                         half)[1].opt_state.momentum
         for name, got in (("jax", j_mom), ("port", mine)):

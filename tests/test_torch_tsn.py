@@ -23,8 +23,11 @@ from ehgr_tpu_torch.models.convert import (load_jax_variables,
 from ehgr_tpu_torch.models.tsn import variant
 
 from test_regression import GOLD_TSN
+from test_torch_train import single_thread  # noqa: F401  (a fixture)
 
 CLS, T, HW = 5, 4, 32
+# every test here runs the port forward or builds it, never a trajectory
+pytestmark = pytest.mark.usefixtures("single_thread")
 
 
 def _x():
@@ -42,9 +45,18 @@ def golden():
     x = jnp.asarray(_x())
     v = jax.jit(lambda r, xx: model.init(r, xx, train=False))(
         {"params": jax.random.key(42)}, x)
-    logits = np.asarray(model.apply(v, x, train=False))
+    logits = np.asarray(jax.jit(lambda vv, xx: model.apply(
+        vv, xx, train=False))(v, x))
     flat = {k: np.asarray(a) for k, a in flatten_dict(v).items()}
     return v, flat, logits
+
+
+@pytest.fixture(scope="module")
+def ports(golden):
+    """The port's tsn from the golden variables, one converted model per
+    ACTION mode for the module."""
+    return {mode: _port(golden[1], mode) for mode in ("mega", None,
+                                                      "prologue")}
 
 
 def _port(flat, mode):
@@ -73,10 +85,10 @@ class TestConverter:
 
 class TestGoldenLogits:
     @pytest.mark.parametrize("mode", ["mega", None, "prologue"])
-    def test_reproduces_gold_and_jax(self, golden, mode):
-        _, flat, want = golden
+    def test_reproduces_gold_and_jax(self, golden, ports, mode):
+        want = golden[2]
         with torch.no_grad():
-            got = _port(flat, mode)(torch.from_numpy(_x())).numpy()
+            got = ports[mode](torch.from_numpy(_x())).numpy()
         np.testing.assert_allclose(got[0, :5], GOLD_TSN, rtol=2e-3,
                                    atol=1e-4)
         np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
