@@ -64,9 +64,10 @@ Phases; any miss raises and the run exits nonzero:
    kernels, the grouped ``conv3d`` and its backward for the learnable
    shift; none for the TSM shift) at each site shape with CUDA events,
    each ACTION kernel beside its route and launch grid; the shift kernels
-   also on the device alone with their inputs cold in L2 (the summed
-   durations of the call's kernels in a ``torch.profiler`` trace), the
-   backward beside its route and strip geometry and its earlier design.
+   also on the device alone with their inputs cold in L2 (CUDA events
+   around the call just after a 1 GiB write; each kernel's duration from a
+   ``torch.profiler`` trace beside), the backward beside its route and
+   strip geometry and its earlier design.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
@@ -82,6 +83,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -111,10 +113,11 @@ ROUTE_SHAPES = [(201, 128, 512), (15, 64, 64), (50, 72, 40)]
 # take TG = 4 at Cr = 4 (frames 5-7 of the second group masked), 260 take
 # TG = 2 at Cr = 32 (frame 5 of the third); the checks assert T % TG != 0
 T_SHAPES = [(5, 3136, 64, 64), (5, 784, 512, 128)]
-# bytes written before each device-only timed launch of a shift kernel:
-# over the card's 50 MB L2, so the launch reads its inputs from device
-# memory, as the train step finds them
-FLUSH_BYTES = 128 << 20
+# bytes written before each device-only timed call of a shift kernel: over
+# the card's 50 MB L2, so the call reads its inputs from device memory, as
+# the train step finds them, and ~0.3 ms of writing, so the host has
+# enqueued the call before the write ends
+FLUSH_BYTES = 1 << 30
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 / fp32 FLOP/s
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -1290,17 +1293,30 @@ def _time_ms(torch, fn, reps=20):
 
 def _device_times(torch, fn, reps=10):
     """Device-only time of one ``fn()`` call with its inputs cold in L2:
-    the summed durations of the call's kernels as a ``torch.profiler``
-    trace of ``reps`` calls records them on the card, each call after a
-    write of FLUSH_BYTES (no host time, no gap between launches).  Returns
-    (ms, ms by kernel name: each kernel's mean a call)."""
+    CUDA events just after a write of FLUSH_BYTES and just after the call,
+    the median over ``reps`` calls (the host enqueues the call while the
+    write still runs, so no host time falls between the events; the gaps
+    between the call's own kernels do).  Returns (ms, ms by kernel name:
+    each kernel's mean duration a call in a ``torch.profiler`` trace of
+    the same calls, empty where the trace holds none of them)."""
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     fn()                                      # built and warm
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        flush.fill_(1.0)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities):
+        pass                   # takes the records of earlier launches, which
+    with profile(activities=activities) as prof:   # a trace may deliver late
         for _ in range(reps):
             flush.fill_(1.0)
             fn()
@@ -1313,9 +1329,7 @@ def _device_times(torch, fn, reps=10):
             by_name[name] = by_name.get(name, 0.0) + getattr(
                 e, "self_device_time_total",
                 getattr(e, "self_cuda_time_total", 0)) / reps / 1e3
-    if not by_name:
-        raise AssertionError("the profiler recorded no kernel of the call")
-    return sum(by_name.values()), by_name
+    return statistics.median(times), by_name
 
 
 def _bound_ms(nbytes, flops, dname):
