@@ -8,10 +8,11 @@ Phases; any miss raises and the run exits nonzero:
 2. hold ``action_stats`` / ``action_apply`` against their plain versions at
    the eight ResNet-50 ACTION site shapes of the main path, at the served
    batch's 20 clips and at the train steps' 8 (the window kernel picks its
-   frame group TG from the clip count), plus two ragged shapes, three more
-   routes of ``action_apply`` and two shapes at T=5 whose last frame group
-   has masked frames (each kernel's route, and the window kernel's TG and
-   N, printed per shape), in fp32 (TF32 off) and in bf16 (plain
+   frame group TG from the clip count), the 224^2 and the 256^2 (NvGesture
+   test crop) sites at the test runner's 10, plus two ragged shapes, three
+   more routes of ``action_apply`` and two shapes at T=5 whose last frame
+   group has masked frames (each kernel's route, and the window kernel's
+   TG and N, printed per shape), in fp32 (TF32 off) and in bf16 (plain
    version in f32 from the same bf16 inputs), ``action_stats`` also
    bitwise equal over two calls; and measure how far the TPU kernel's bf16
    running sum of ``pool`` would land from the f32 sum kept here;
@@ -56,18 +57,27 @@ Phases; any miss raises and the run exits nonzero:
    its window kernel; one call traced) and ``'mega'``, the four heads
    against the plain model; ``tsn_middle1/2/3``
    loaded with ``merge_state_dict`` ('prologue': 3 / 7 / 13 launches), each
-   against the SD model's exit; then every (TG, N) of the window kernel
-   that a main path launched (its sizes recorded at each launch) must be
-   among those that phases 2 and 4 held against the plain version;
-10. time each kernel, its plain version and a yardstick (the bare GEMM of
+   against the SD model's exit;
+10. the test protocol: ``run_test`` over the synthetic moving-patch
+   videos (32 videos of 10 clips, one video a forward as the runner
+   batches them), ``ego_baseline`` at 224^2 with ``--action_fused mega``
+   on the serve model's weights read back from a ``.pth`` (16
+   ``action_stats_window`` + 16 ``action_apply_strip`` launches a
+   forward) and ``nv_sd`` at 256^2 with four heads in ``'prologue'`` (16
+   ``action_prologue_window``), each with the loader alone and the scorer
+   alone timed apart and the first batch's probabilities held against the
+   plain model; then every (TG, N) of the window kernel that a main path
+   launched (its sizes recorded at each launch) must be among those that
+   phases 2 and 4 held against the plain version;
+11. time each kernel, its plain version and a yardstick (the bare GEMM of
    the same ``[rows, C] x [C, F]`` (or ``x @ W_p3``) product for the ACTION
    kernels, the grouped ``conv3d`` and its backward for the learnable
    shift; none for the TSM shift) at each site shape with CUDA events,
-   each ACTION kernel beside its route and launch grid; the shift kernels
-   also on the device alone with their inputs cold in L2 (CUDA events
-   around the call just after a 1 GiB write; each kernel's duration from a
-   ``torch.profiler`` trace beside), the backward beside its route and
-   strip geometry and its earlier design.
+   each ACTION kernel beside its route and launch grid; every kernel also
+   on the device alone with its inputs cold in L2 (CUDA events around the
+   call just after a 1 GiB write; each kernel's duration from a
+   ``torch.profiler`` trace beside), the shift backward beside its route
+   and strip geometry and its earlier design.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
@@ -86,6 +96,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
 from concurrent.futures import ThreadPoolExecutor
@@ -99,6 +110,17 @@ BATCHES, VIDEOS, CLIPS = 3, 2, 10       # requests of V videos x K clips
 SITES = [(3136, 64, 64, 1), (3136, 256, 64, 2), (3136, 256, 128, 1),
          (784, 512, 128, 3), (784, 512, 256, 1), (196, 1024, 256, 5),
          (196, 1024, 512, 1), (49, 2048, 512, 2)]
+# the same sites at NvGesture's 256^2 test crop (S = 64^2 / 32^2 / 16^2 /
+# 8^2): no resize before the model, whose pooling adapts
+NV_SITES = [(4096, 64, 64, 1), (4096, 256, 64, 2), (4096, 256, 128, 1),
+            (1024, 512, 128, 3), (1024, 512, 256, 1), (256, 1024, 256, 5),
+            (256, 1024, 512, 1), (64, 2048, 512, 2)]
+# the test runner's clips a forward: max(1, 8 // clip_num) videos of the
+# recipe's clip_num = 10 clips (ehgr_tpu_torch/eval/runner.py)
+RUN_CLIPS = 10
+# synthetic videos of the test phases: the factory tests on half of them,
+# at least 32 (ehgr_tpu_torch/data/factory.py build_test_dataset)
+RUN_VIDEOS = 64
 # S off every tile size with Cr=8 and F under one tile; and C off the
 # 8-channel rows the tensor-core sweep needs (bf16 then takes the FMA sweep)
 RAGGED = [(1000, 128, 32), (50, 100, 24)]
@@ -251,9 +273,11 @@ def _repeat_is_bitwise(torch, first, call):
 def _check_shapes(n):
     """(clips, T, S, C, F) of the ACTION kernel checks: every site at the
     served batch's ``n`` clips and at TRAIN_CLIPS (the train steps' batch:
-    the window kernel picks its TG from the clip count), the ragged and
-    route shapes and T_SHAPES at ``n``."""
+    the window kernel picks its TG from the clip count), every 224^2 and
+    256^2 site at the test runner's RUN_CLIPS, the ragged and route shapes
+    and T_SHAPES at ``n``."""
     return ([(k, T) + s[:3] for k in (n, TRAIN_CLIPS) for s in SITES] +
+            [(RUN_CLIPS, T) + s[:3] for s in SITES + NV_SITES] +
             [(n, T) + s[:3] for s in RAGGED + ROUTE_SHAPES] +
             [(n,) + s for s in T_SHAPES])
 
@@ -1245,6 +1269,177 @@ def sd_deploy(torch, seed, trained, batches):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the eighth slice: the test protocol (data layer, run_test) on the card
+# ---------------------------------------------------------------------------
+
+def test_config(preset, checkpoint, mode, seed):
+    """``preset`` on the synthetic moving-patch videos (RUN_VIDEOS, the
+    recipe's 10 clips a video at the preset's test crop), ACTION in mode
+    ``mode``, the weights of ``checkpoint``."""
+    import dataclasses
+
+    from ehgr_tpu_torch.configs import get_preset
+
+    cfg = get_preset(preset)
+    return cfg.replace(
+        data=dataclasses.replace(cfg.data, backend="synthetic",
+                                 synthetic_task="motion",
+                                 synthetic_videos=RUN_VIDEOS),
+        model=dataclasses.replace(cfg.model, action_fused=mode),
+        run=dataclasses.replace(cfg.run, checkpoint_path=checkpoint,
+                                seed=seed))
+
+
+def _scorer_probs(torch, cfg, arch, heads, frames):
+    """Each head's probabilities of one loader batch through the runner's
+    model and scorer (``_build_model``, ``make_test_scorer``): the model in
+    ``cfg``'s ACTION mode and the plain one (mode 'none'), each in bf16 and
+    in fp32 (TF32 off); keyed (mode, dtype)."""
+    import dataclasses
+
+    from ehgr_tpu_torch.eval import runner
+
+    out = {}
+    for mode in (cfg.model.action_fused, "none"):
+        c = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                  action_fused=mode))
+        model, skipped = runner._build_model(c, arch, "cuda")
+        if skipped:
+            raise AssertionError(f"{arch}: checkpoint keys not loaded: "
+                                 f"{skipped}")
+        for dname in ("bfloat16", "float32"):
+            model.dtype = getattr(torch, dname)
+            cd = c.replace(model=dataclasses.replace(c.model, dtype=dname))
+            out[mode, dname] = runner.make_test_scorer(
+                cd, model, heads, "cuda")(frames)
+        del model
+    return out
+
+
+def run_protocol(torch, name, cfg, arch, heads, want, slack):
+    """A main path: ``run_test(cfg, arch, heads)`` on the card (host
+    loader, upload, scorer, votes, metrics), with the kernels' launch
+    counters zeroed just before and read just after; each forward (one
+    video of RUN_CLIPS clips) must launch exactly ``want``.  Then, apart:
+    the loader alone and the scorer alone over the same batches (the wall's
+    split between host and card), one scorer call traced (device busy and
+    idle share), and the first batch's probabilities of
+    every head against the plain model's: fp32 within LOGIT_TOL, bf16
+    within ``slack`` times the plain model's own bf16 error from fp32,
+    plus LOGIT_TOL (the rule of compare_logits)."""
+    from ehgr_tpu_torch.data.factory import build_test_dataset
+    from ehgr_tpu_torch.data.pipeline import Loader
+    from ehgr_tpu_torch.eval import runner
+
+    reset_counters()
+    t0 = time.perf_counter()
+    res = runner.run_test(cfg, arch=arch, heads=heads, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+
+    videos = max(cfg.data.synthetic_videos // 2, 32)
+    per_batch = max(1, 8 // cfg.data.clip_num or 1)
+    forwards = -(-videos // per_batch)
+    want = {k: want.get(k, 0) * forwards for k in launches}
+    if launches != want:
+        raise AssertionError(f"{name}: launches {launches}, want {want} "
+                             f"({forwards} forwards)")
+    names = ["final"] + [f"mid{i}" for i in range(1, heads)]
+    keys = {"n_videos", "confusion"} | {f"{n}_top{k}" for n in names
+                                        for k in (1, 5)}
+    if res["n_videos"] != videos or set(res) != keys or any(
+            res["confusion"][n].m.sum() != videos for n in names):
+        raise AssertionError(f"{name}: run_test gave {sorted(res)}, "
+                             f"n_videos {res['n_videos']}, want {videos}")
+
+    t0 = time.perf_counter()
+    batches = list(Loader(build_test_dataset(cfg), batch_size=per_batch,
+                          num_workers=cfg.data.num_workers, drop_last=False))
+    loader_s = time.perf_counter() - t0
+    model, _ = runner._build_model(cfg, arch, "cuda")
+    score = runner.make_test_scorer(cfg, model, heads, "cuda")
+    score(batches[0]["rgb"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for b in batches:
+        score(b["rgb"])
+    torch.cuda.synchronize()
+    scorer_s = time.perf_counter() - t0
+    prof = _device_profile(torch, lambda: score(batches[0]["rgb"]))
+    del model, score
+
+    probs = _scorer_probs(torch, cfg, arch, heads, batches[0]["rgb"])
+    mode = cfg.model.action_fused
+    ref = probs["none", "float32"]
+    gate = []
+    for h in range(heads):
+        theirs = _rel_err(probs["none", "bfloat16"][h], ref[h])[1]
+        mine = _rel_err(probs[mode, "bfloat16"][h], ref[h])[1]
+        fp32 = _rel_err(probs[mode, "float32"][h], ref[h])[1]
+        gate.append(dict(head=names[h], fp32_rel=fp32, fp32_tol=LOGIT_TOL,
+                         bf16_rel=mine, plain_bf16_rel=theirs,
+                         bf16_tol=slack * theirs + LOGIT_TOL))
+    clips = videos * cfg.data.clip_num
+    out = dict(arch=arch, heads=heads, mode=mode, videos=videos,
+               clips_per_video=cfg.data.clip_num,
+               crop=cfg.data.crop_size, classes=cfg.model.num_classes,
+               forwards=forwards, launches=launches,
+               results={k: v for k, v in res.items() if k != "confusion"},
+               seconds=wall, clips_per_s=clips / wall,
+               videos_per_s=videos / wall, loader_alone_s=loader_s,
+               scorer_alone_s=scorer_s,
+               scorer_alone_clips_per_s=clips / scorer_s,
+               scorer_call_traced={k: prof[k] for k in (
+                   "wall_ms", "device_busy_ms", "idle_share")},
+               loader_workers=cfg.data.num_workers, probs=gate)
+    print(f"{name} " + json.dumps(out), flush=True)
+    for g in gate:
+        if not (g["fp32_rel"] <= LOGIT_TOL and g["bf16_rel"] <= g["bf16_tol"]
+                and all(torch.isfinite(p).all() for p in probs[mode,
+                                                               "bfloat16"])):
+            raise AssertionError(f"{name}: {g['head']} probabilities, "
+                                 f"{mode} vs plain: {g}")
+    return out
+
+
+def test_ego(torch, seed, checkpoint):
+    """The EgoGesture test protocol at full width: ``ego_baseline``
+    (TSN + ACTION ResNet-50, T=8, 224^2, 83 classes, bf16) with the ACTION
+    kernels at eval (``--action_fused mega``: 'vjp', the preset's, takes
+    the plain formulation at eval in both packages), the serve model's
+    weights through a ``.pth``; 16 ``action_stats_window`` and 16
+    ``action_apply_strip`` launches a forward."""
+    cfg = test_config("ego_baseline", checkpoint, "mega", seed)
+    return run_protocol(torch, "test_ego", cfg, "tsn", 1, MEGA_FORWARD,
+                        BF16_SLACK)
+
+
+def test_nv_sd(torch, seed, path):
+    """The NvGesture SD test protocol: ``nv_sd`` (256^2 test crop, 25
+    classes) with ``action_fused='prologue'``, four heads; a random
+    ``tsn_sd`` from ``seed`` with BN statistics set from the first test
+    batch (plain path, fp32), written to ``path`` and read back by the
+    runner; 16 ``action_prologue_window`` launches a forward."""
+    from ehgr_tpu_torch.data.factory import build_test_dataset
+    from ehgr_tpu_torch.models.tsn import variant
+    from ehgr_tpu_torch.ops.preprocess_device import normalize_clip
+
+    cfg = test_config("nv_sd", path, "prologue", seed)
+    model = variant("tsn_sd", num_class=cfg.model.num_classes,
+                    num_segments=T, temporal="action", action_fused=None,
+                    dtype=torch.float32, device="cuda",
+                    generator=torch.Generator().manual_seed(seed))
+    frames = build_test_dataset(cfg)[0]["rgb"]         # [K, T, 256, 256, 3]
+    set_bn_stats(torch, model,
+                 normalize_clip(torch.as_tensor(frames).cuda()))
+    torch.save({"state_dict": model.state_dict()}, path)
+    del model
+    return run_protocol(torch, "test_nv_sd", cfg, "tsn_sd", 4,
+                        PROLOGUE_FORWARD, HEADS_BF16_SLACK)
+
+
 def _device_profile(torch, fn):
     """Wall time and device time by kernel name of one call of ``fn``
     (torch.profiler), ``fn`` run once before to warm up."""
@@ -1340,9 +1535,10 @@ def _bound_ms(nbytes, flops, dname):
 def time_kernels(torch, mega, n, gen):
     """Per site shape, bf16 (the main path's dtype): kernel, plain version,
     bare GEMM; bound from the bytes each function must move and the FLOPs
-    it does; each kernel's route (read from its launch counts) and its
-    grid: the strip kernel's for ``action_apply``, the window kernel's
-    (TG, blocks) for ``action_stats``."""
+    it does; each kernel also on the device alone, its inputs cold in L2
+    (``_device_times``); each kernel's route (read from its launch counts)
+    and its grid: the strip kernel's for ``action_apply``, the window
+    kernel's (TG, blocks) for ``action_stats``."""
     rows_out = []
     for s, c, f, count in SITES:
         d = _inputs(torch, n, s, c, f, torch.bfloat16, gen)
@@ -1373,6 +1569,9 @@ def time_kernels(torch, mega, n, gen):
                      plain_ms=_time_ms(torch, lambda: fp(*args)),
                      matmul_ms=_time_ms(torch, lambda: xb @ gemm_w))
             r["roofline_share"] = bound / r["ms"]
+            r["device_ms"], r["device_ms_by_kernel"] = _device_times(
+                torch, lambda: fk(*args))
+            r["device_share"] = bound / r["device_ms"]
             r["route"] = _launched_route(fk, lambda: fk(*args))[1]
             if kernel == "action_apply":
                 g = r["grid"] = mega.strip_grid(rows, f)
@@ -1383,8 +1582,10 @@ def time_kernels(torch, mega, n, gen):
                 extra = _window_text(g)
             rows_out.append(r)
             print(f"time {kernel:12s} S={s:4d} C={c:4d} F={f:3d} "
-                  f"ms={r['ms']:.4f} bound={bound:.4f} ({by}) "
+                  f"ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
+                  f"bound={bound:.4f} ({by}) "
                   f"share={r['roofline_share']:.3f} "
+                  f"device_share={r['device_share']:.3f} "
                   f"plain={r['plain_ms']:.4f} matmul={r['matmul_ms']:.4f} "
                   f"route={r['route']}{extra}", flush=True)
         del d, xb
@@ -1551,9 +1752,10 @@ def time_prologue(torch, fused, mega, n, gen):
     """Per distinct (S, C) of the sites at the served batch's ``n`` clips,
     bf16: the prologue kernel (its route and grid), its plain version and
     the bare ``x @ W_p3`` GEMM (no single PyTorch call computes the
-    function).  Bound: x read once, x_shift, mc, pool and x3 written once,
-    the taps and W_p3 read once, at 3.35 TB/s, beside the GEMM's FLOPs at
-    the bf16 peak."""
+    function), the kernel also on the device alone, its input cold in L2
+    (``_device_times``).  Bound: x read once, x_shift, mc, pool and x3
+    written once, the taps and W_p3 read once, at 3.35 TB/s, beside the
+    GEMM's FLOPs at the bf16 peak."""
     rows_out = []
     for s, c, count in _shift_shapes():
         d = _inputs(torch, n, s, c, 16, torch.bfloat16, gen)
@@ -1572,13 +1774,19 @@ def time_prologue(torch, fused, mega, n, gen):
                                    lambda: fused.action_prologue_plain(*args)),
                  matmul_ms=_time_ms(torch, lambda: xb @ d["wp3"]))
         r["roofline_share"] = r["bound_ms"] / r["ms"]
+        r["device_ms"], r["device_ms_by_kernel"] = _device_times(
+            torch, lambda: fused.action_prologue(*args))
+        r["device_share"] = r["bound_ms"] / r["device_ms"]
         r["route"] = _launched_route(
             fused.action_prologue, lambda: fused.action_prologue(*args))[1]
         g = r["grid"] = mega.window_grid(n, T, s, c, cr)
         rows_out.append(r)
         print(f"time action_prologue S={s:4d} C={c:4d} ms={r['ms']:.4f} "
+              f"device_ms={r['device_ms']:.4f} "
               f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"share={r['roofline_share']:.3f} plain={r['plain_ms']:.4f} "
+              f"share={r['roofline_share']:.3f} "
+              f"device_share={r['device_share']:.3f} "
+              f"plain={r['plain_ms']:.4f} "
               f"matmul={r['matmul_ms']:.4f} route={r['route']}"
               f"{_window_text(g)}", flush=True)
         del d, xb
@@ -1799,8 +2007,13 @@ def main(argv=None) -> int:
                     gen)
     batches = make_batches(args.seed)
 
-    # PR 1's path: the ACTION scorer ('mega')
+    # the serving path: the ACTION scorer ('mega'); its weights also serve
+    # the EgoGesture test protocol below, through a file
     model, plain = build_models(torch, args.seed, batches[0][0])
+    tmpdir = tempfile.TemporaryDirectory()     # removed at exit in any case
+    tmp = tmpdir.name
+    ego_pth = os.path.join(tmp, "ego_serve.pth")
+    torch.save({"state_dict": model.state_dict()}, ego_pth)
     served = phase("serve", serve, torch, model, batches, MEGA_FORWARD)
     logits = compare_logits(torch, model, plain, batches[0][0])
     del plain
@@ -1842,6 +2055,13 @@ def main(argv=None) -> int:
                       "sd", ("bn_batch",))
     deploy = phase("sd_deploy", sd_deploy, torch, args.seed, sd_state,
                    batches)
+    del sd_state
+
+    # the test protocol: host data layer, run_test, 10 clips a forward
+    ego = phase("test_ego", test_ego, torch, args.seed, ego_pth)
+    nv_sd = phase("test_nv_sd", test_nv_sd, torch, args.seed,
+                  os.path.join(tmp, "nv_sd.pth"))
+    tmpdir.cleanup()
     coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
@@ -1857,7 +2077,8 @@ def main(argv=None) -> int:
              "sd_serve_prologue": deploy["serve_prologue"],
              "sd_serve_mega": deploy["serve_mega"],
              **{f"tsn_middle{k}": v
-                for k, v in deploy["middles"].items()}}
+                for k, v in deploy["middles"].items()},
+             "test_ego": ego, "test_nv_sd": nv_sd}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -1868,6 +2089,7 @@ def main(argv=None) -> int:
                       "tsm_train": tsm_trained, "tsm_sites": tsm_sites,
                       "sd_transfer": transfer, "sd_train": sd_trained,
                       "sd_parity": sd_parity, "sd_deploy": deploy,
+                      "test_ego": ego, "test_nv_sd": nv_sd,
                       "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)

@@ -1,15 +1,16 @@
 """Typed configuration of the port: its own copy of the JAX package's
-``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``LossConfig``, ``Config``
-and ``PRESETS`` (``ehgr_tpu/configs.py``), so the port imports nothing of
-that package.
+``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``LossConfig``,
+``RunConfig``, ``Config``, ``PRESETS`` and ``config_from_args``
+(``ehgr_tpu/configs.py``), so the port imports nothing of that package.
 
-The mesh and run settings arrive with the data layer and the loop.
+The mesh settings (``ParallelConfig``) are not ported: the port runs on one
+card (ROADMAP: queue 1, item 6, DDP).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field, replace
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 
 @dataclass(frozen=True)
@@ -110,11 +111,29 @@ class LossConfig:
 
 
 @dataclass(frozen=True)
+class RunConfig:
+    """Logging and checkpoint housekeeping."""
+
+    run_dir: str = "runs"
+    model_name: str = "ACTION_resnet50"
+    display: int = 100                # log every N steps
+    save_depth_images: bool = False
+    seed: int = 0
+    checkpoint_path: str = ""         # weights to start from (--checkpoint_path)
+    # restore the full train state (optimizer, EMA, step), not the weights
+    # alone (ROADMAP: queue 1, item 2, the loop and checkpoints)
+    resume_full: bool = False
+    # write checkpoints once at the end of training instead of every epoch
+    ckpt_light: bool = False
+
+
+@dataclass(frozen=True)
 class Config:
     data: DataConfig = field(default_factory=DataConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    run: RunConfig = field(default_factory=RunConfig)
 
     def replace(self, **kw) -> "Config":
         return replace(self, **kw)
@@ -165,3 +184,97 @@ PRESETS = {
 
 def get_preset(name: str) -> Config:
     return PRESETS[name].validate()
+
+
+def config_from_args(argv: Sequence[str],
+                     default_preset: str = "ego_baseline") -> Config:
+    """The CLI flags of ``ehgr_tpu.configs.config_from_args`` (the
+    reference's flag names) over a preset, giving the same value for every
+    field of this ``Config``.  A flag of something the port does not have
+    yet, set away from its default, raises ``NotImplementedError`` naming
+    its ROADMAP item."""
+    import argparse
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--preset", default=default_preset, choices=sorted(PRESETS))
+    p.add_argument("--dataset", default=None)
+    p.add_argument("--annot_path", default=None)
+    p.add_argument("--clip_len", type=int, default=None)
+    p.add_argument("--batch_size", type=int, default=None)
+    p.add_argument("--lr", type=float, default=None)
+    p.add_argument("--wd", type=float, default=None)
+    p.add_argument("--dropout", type=float, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--lr_steps", type=int, nargs="+", default=None)
+    p.add_argument("--base_model", default=None)
+    p.add_argument("--is_shift", action="store_true", default=None)
+    p.add_argument("--shift_div", type=int, default=None)
+    p.add_argument("--modal", default=None)
+    p.add_argument("--model_name", default=None)
+    p.add_argument("--ema_decay", type=float, default=None)
+    p.add_argument("--synthetic", action="store_true", default=False)
+    p.add_argument("--checkpoint_path", default=None)
+    p.add_argument("--clip_num", type=int, default=None)
+    p.add_argument("--test_crops", type=int, default=None)
+    p.add_argument("--scale_size", type=int, default=None)
+    p.add_argument("--crop_size", type=int, default=None)
+    p.add_argument("--train_crop_size", type=int, default=None)
+    p.add_argument("--backend", default=None,
+                   choices=["pil", "native", "native_fast"],
+                   help="host decode path (native = C++ fused decoder)")
+    p.add_argument("--action_fused", default=None,
+                   choices=["prologue", "mega", "vjp", "none"],
+                   help="ACTION kernel mode (default 'vjp': the kernel "
+                        "region in training, the plain formulation at eval)")
+    p.add_argument("--action_stages", type=int, nargs="+", default=None,
+                   help="stages carrying ACTION (placement ablation)")
+    p.add_argument("--quantize", default=None,
+                   choices=["dynamic", "static"],
+                   help="int8 inference (not ported: ROADMAP queue 1, "
+                        "item 5)")
+    p.add_argument("--num_classes", type=int, default=None)
+    p.add_argument("--run_dir", default=None)
+    p.add_argument("--synthetic_videos", type=int, default=None)
+    p.add_argument("--vit", type=int, nargs=3, default=None,
+                   metavar=("DIM", "DEPTH", "HEADS"),
+                   help="videomae encoder size (not ported: ROADMAP queue "
+                        "1, item 6)")
+    p.add_argument("--accum_steps", type=int, default=None,
+                   help="gradient accumulation: microbatches per step")
+    args = p.parse_args(argv)
+    if args.quantize is not None:
+        raise NotImplementedError(
+            f"--quantize {args.quantize}: int8 inference is not ported yet "
+            "(ROADMAP: queue 1, item 5)")
+    if args.vit is not None:
+        raise NotImplementedError(
+            "--vit: VideoMAE is not ported yet (ROADMAP: queue 1, item 6)")
+
+    cfg = get_preset(args.preset)
+    d, m, o, r = cfg.data, cfg.model, cfg.optim, cfg.run
+
+    def upd(obj, **kw):
+        kw = {k: v for k, v in kw.items() if v is not None}
+        return replace(obj, **kw) if kw else obj
+
+    d = upd(d, dataset=args.dataset, annot_path=args.annot_path,
+            clip_len=args.clip_len, batch_size=args.batch_size,
+            clip_num=args.clip_num, test_crops=args.test_crops,
+            scale_size=args.scale_size, crop_size=args.crop_size,
+            train_crop_size=args.train_crop_size, backend=args.backend,
+            num_classes=args.num_classes,
+            synthetic_videos=args.synthetic_videos)
+    if args.synthetic:
+        d = replace(d, backend="synthetic")
+    m = upd(m, base_model=args.base_model, shift_div=args.shift_div,
+            modal=args.modal, dropout=args.dropout,
+            num_segments=args.clip_len, action_fused=args.action_fused,
+            num_classes=args.num_classes,
+            action_stages=(tuple(args.action_stages)
+                           if args.action_stages else None))
+    o = upd(o, lr=args.lr, weight_decay=args.wd, epochs=args.epochs,
+            lr_steps=tuple(args.lr_steps) if args.lr_steps else None,
+            ema_decay=args.ema_decay, accum_steps=args.accum_steps)
+    r = upd(r, model_name=args.model_name,
+            checkpoint_path=args.checkpoint_path, run_dir=args.run_dir)
+    return Config(data=d, model=m, optim=o, loss=cfg.loss, run=r).validate()

@@ -30,12 +30,13 @@ import torch
 
 import jax
 import jax.numpy as jnp
-from flax.traverse_util import flatten_dict
+from flax.traverse_util import flatten_dict, unflatten_dict
 
 from ehgr_tpu.configs import LossConfig as JLossConfig
 from ehgr_tpu.configs import OptimConfig as JOptimConfig
 from ehgr_tpu.models import resnet as j_resnet
 from ehgr_tpu.models.tsn import variant as j_variant
+from ehgr_tpu.ops.preprocess_device import normalize_clip as j_normalize
 from ehgr_tpu.train.optim import build_optimizer as j_build_optimizer
 from ehgr_tpu.train.steps import create_train_state as j_create_state
 from ehgr_tpu.train.steps import make_eval_step as j_make_eval_step
@@ -60,6 +61,14 @@ TOL, ULPS = 1e-3, 4
 # (measured 0.9-1.9%); the first step's gradients agree within 1e-4
 # (test_first_step_gradients)
 MOMENTUM_TOL = 3e-2
+# accum_steps=2 in 'vjp' on one torch thread: the second step puts one
+# element of layer4.0's block output on the other side of its ReLU from a
+# float64 run (test_accum_vjp_gap_is_a_relu_kink); that element's gradient
+# reaches every backbone leaf, measured up to 10.9x TOL on the parameter
+# and EMA deltas (layer4.0.bn3.bias), so those deltas of the backbone are
+# held to KINK_TOL in that case, new_fc's and every other tree to TOL
+KINK_TOL = 3e-2
+BACKBONE = ("base_model.",)
 
 
 @contextlib.contextmanager
@@ -151,14 +160,17 @@ def jax_evals(arch, stage, accum):
 
 
 def port_run(arch, stage, accum, mode, flat0, batches,
-             dtype=torch.float32, snapshots=None):
+             dtype=torch.float32, snapshots=None, on_model=None):
     """The port's trajectory over ``batches`` from ``flat0``: (model, last
     state, metrics of each step); ``snapshots``, a list, also gets a copy
-    of the state after each step."""
+    of the state after each step; ``on_model`` is called with the model
+    before the first step."""
     with tiny_resnet():
         model = variant(arch, num_class=CLS, num_segments=T,
                         partial_bn=False, dropout=0.0, action_fused=mode,
                         dtype=dtype, device="cpu")
+    if on_model is not None:
+        on_model(model)
     load_jax_variables(model, flat0)
     model.to(dtype)
     opt, _ = build_optimizer(model, OptimConfig(lr=LR, lr_steps=LR_STEPS),
@@ -187,10 +199,11 @@ def _excess(got, want, ref, tol):
 
 
 def check_trajectory(jax_result, port_result, stage, tol=TOL,
-                     momentum_tol=None, loose=((), None)):
+                     momentum_tol=None, loose=((), None), loose_in=None):
     """Losses within 1e-4 at each step; every leaf of the final state within
     ``tol`` (the momentum within ``momentum_tol`` where given), except the
-    leaves whose key starts with one of ``loose[0]``, held to ``loose[1]``."""
+    leaves whose key starts with one of ``loose[0]``, held to ``loose[1]``
+    (in the trees named by ``loose_in`` only, where given)."""
     flat0, j_metrics, final = jax_result[:3]
     _, state, metrics = port_result
     keys = ("loss", "ce") + (("depth",) if stage == "mtmm" else ())
@@ -226,8 +239,10 @@ def check_trajectory(jax_result, port_result, stage, tol=TOL,
         assert sorted(got[what]) == sorted(w), what
         ref = p0 if "delta" in what else {}
         lim = momentum_tol if what == "momentum" and momentum_tol else tol
+        in_scope = loose_in is None or what in loose_in
         excess = {k: _excess(got[what][k], w[k], ref.get(k),
-                             loose[1] if k.startswith(loose[0]) else lim)
+                             loose[1] if in_scope and k.startswith(loose[0])
+                             else lim)
                   for k in w}
         worst = max(excess, key=excess.get)
         assert excess[worst] <= 1.0, (what, worst, excess[worst])
@@ -306,9 +321,70 @@ class TestBaselineSteps:
     @pytest.mark.parametrize("accum,mode", [(1, "vjp"), (2, "vjp"),
                                             (1, None)])
     def test_k_steps_match_jax(self, accum, mode):
+        """With accum 2 in 'vjp' the backbone's parameter and EMA deltas
+        are held to KINK_TOL (see its note)."""
+        kink = accum == 2 and mode == "vjp"
         check_trajectory(jax_result("tsn", "baseline", accum),
                          port_result("tsn", "baseline", accum, mode),
-                         "baseline", momentum_tol=MOMENTUM_TOL)
+                         "baseline", momentum_tol=MOMENTUM_TOL,
+                         loose=(BACKBONE, KINK_TOL) if kink else ((), None),
+                         loose_in=("param delta", "ema delta"))
+
+    def test_accum_vjp_gap_is_a_relu_kink(self):
+        """``accum_steps=2``, 'vjp', one torch thread: the second step's
+        second microbatch puts element (3, 1708) of layer4.0's block output
+        before its ReLU (bn3 + the downsample branch) at +9.8e-6 in a
+        float64 run of the port and at -1.9e-6 in the f32 run, inside that
+        run's rounding of the tensor (max abs error 5.0e-5); JAX's f32 run
+        keeps it positive (+1.0e-5) with a larger max error (1.5e-4).  So
+        the two f32 runs take that ReLU on opposite sides, and the port is
+        no farther from float64 than JAX.  Each run from its own first
+        step."""
+        key = ("tsn", "baseline", 2)
+        jax_result(*key)
+        setup, run = _JAX[key]
+        batches = make_batches(0, False, n=N * 2)[:2]
+
+        def pre_relu(dtype, mode):
+            """The block output before its ReLU at the second step's second
+            microbatch, as the port computes it (bn3 + downsample)."""
+            seen = {"bn3": [], "ds": []}
+
+            def hook(model):
+                block = model.base_model.layer4[0]
+                for name, mod in (("bn3", block.bn3),
+                                  ("ds", block.downsample[1])):
+                    mod.register_forward_hook(
+                        lambda m, i, o, name=name: seen[name].append(
+                            o.detach().clone()))
+            port_run("tsn", "baseline", 2, mode, run[0], batches,
+                     dtype=dtype, on_model=hook)
+            return (seen["bn3"][3] + seen["ds"][3]).double().numpy()
+
+        with one_thread():
+            f64 = pre_relu(torch.float64, None)
+            f32 = pre_relu(torch.float32, "vjp")
+        params = unflatten_dict({**run[3][0]["params"],
+                                 **run[3][0]["batch_stats"]})
+        rgb = batches[1]["rgb"][N:]
+        with tiny_resnet():
+            _, mut = jax.jit(lambda v, x: setup["model"].apply(
+                v, x, train=True, mutable=["batch_stats", "intermediates"],
+                capture_intermediates=lambda m, _: m.path[-2:] in (
+                    ("layer4_0", "bn3"), ("layer4_0", "downsample_bn"))))(
+                        params, j_normalize(jnp.asarray(rgb), MEAN, STD,
+                                            dtype=jnp.float32))
+        b3, ds = (np.asarray(v[0], np.float32) for _, v in sorted(
+            flatten_dict(mut["intermediates"]).items()))
+        jax32 = (b3 + ds).astype(np.float64).transpose(0, 3, 1, 2)
+        port_err, jax_err = np.abs(f32 - f64), np.abs(jax32 - f64)
+        flips = np.argwhere((f32 > 0) != (f64 > 0))
+        assert [tuple(f) for f in flips] == [(3, 1708, 0, 0)]
+        for f in map(tuple, flips):
+            assert f64[f] > 0 > f32[f] and jax32[f] > 0
+            assert abs(f64[f]) <= min(port_err.max(), jax_err.max())
+        assert not ((jax32 > 0) != (f64 > 0)).any()
+        assert port_err.max() <= jax_err.max()
 
     @pytest.mark.parametrize("accum", [1, 2])
     def test_first_step_gradients(self, accum):
