@@ -66,10 +66,23 @@ Phases; any miss raises and the run exits nonzero:
    forward) and ``nv_sd`` at 256^2 with four heads in ``'prologue'`` (16
    ``action_prologue_window``), each with the loader alone and the scorer
    alone timed apart and the first batch's probabilities held against the
-   plain model; then every (TG, N) of the window kernel that a main path
-   launched (its sizes recorded at each launch) must be among those that
-   phases 2 and 4 held against the plain version;
-11. time each kernel, its plain version and a yardstick (the bare GEMM of
+   plain model;
+11. the trainers, at full width on the synthetic videos, each through its
+   entry point, under a temporary run directory: ``cli.train_mtmm`` for 2
+   epochs of 8 steps (validation of the live and the EMA weights, the
+   ``latest`` / ``best`` / ``ema_best`` files), ``cli.train_sd`` for one
+   epoch from the MTMM ``best`` (``--checkpoint_path``), ``run_training``
+   resuming the MTMM ``latest`` with ``resume_full`` (the state restored
+   bitwise, 8 more steps) and ``cli.test_sd`` (``'prologue'``) on the SD
+   ``best``; each train step launching the four kernels 16 times and
+   validation none; clips/s of each epoch's train part, data and batch
+   time, validation seconds, each checkpoint write's seconds and bytes and
+   the restore's seconds; then one MTMM step without and with ``remat``:
+   losses, gradients, BN statistics, peak memory and launches.  Then
+   every (TG, N) of the window kernel that a main path launched (its sizes
+   recorded at each launch) must be among those that phases 2 and 4 held
+   against the plain version;
+12. time each kernel, its plain version and a yardstick (the bare GEMM of
    the same ``[rows, C] x [C, F]`` (or ``x @ W_p3``) product for the ACTION
    kernels, the grouped ``conv3d`` and its backward for the learnable
    shift; none for the TSM shift) at each site shape with CUDA events,
@@ -91,6 +104,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import logging
 import math
 import os
 import statistics
@@ -190,6 +204,10 @@ PROLOGUE_FORWARD = {"action_prologue": 16, "action_prologue_window": 16}
 # backward on the strip kernel
 SHIFT_STEP = {"learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
               "learnable_shift_bwd_strip": 16}
+# the trainers' runs: synthetic videos to train on (8 steps of the recipe's
+# 8 clips an epoch) and epochs of the MTMM run (the resume adds one)
+LOOP_VIDEOS, LOOP_EPOCHS = 64, 2
+LOOP_STEPS = LOOP_VIDEOS // TRAIN_CLIPS
 
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
@@ -1317,11 +1335,12 @@ def _scorer_probs(torch, cfg, arch, heads, frames):
     return out
 
 
-def run_protocol(torch, name, cfg, arch, heads, want, slack):
+def run_protocol(torch, name, cfg, arch, heads, want, slack, main=None):
     """A main path: ``run_test(cfg, arch, heads)`` on the card (host
-    loader, upload, scorer, votes, metrics), with the kernels' launch
-    counters zeroed just before and read just after; each forward (one
-    video of RUN_CLIPS clips) must launch exactly ``want``.  Then, apart:
+    loader, upload, scorer, votes, metrics), or ``main()`` (a test CLI that
+    runs it from the flags ``cfg`` was parsed from), with the kernels'
+    launch counters zeroed just before and read just after; each forward
+    (one video of RUN_CLIPS clips) must launch exactly ``want``.  Then, apart:
     the loader alone and the scorer alone over the same batches (the wall's
     split between host and card), one scorer call traced (device busy and
     idle share), and the first batch's probabilities of
@@ -1334,7 +1353,8 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack):
 
     reset_counters()
     t0 = time.perf_counter()
-    res = runner.run_test(cfg, arch=arch, heads=heads, device="cuda")
+    res = main() if main else runner.run_test(cfg, arch=arch, heads=heads,
+                                              device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
@@ -1349,8 +1369,11 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack):
     names = ["final"] + [f"mid{i}" for i in range(1, heads)]
     keys = {"n_videos", "confusion"} | {f"{n}_top{k}" for n in names
                                         for k in (1, 5)}
+    if main:                    # the CLIs return the results without it
+        keys.discard("confusion")
     if res["n_videos"] != videos or set(res) != keys or any(
-            res["confusion"][n].m.sum() != videos for n in names):
+            res["confusion"][n].m.sum() != videos
+            for n in names if "confusion" in keys):
         raise AssertionError(f"{name}: run_test gave {sorted(res)}, "
                              f"n_videos {res['n_videos']}, want {videos}")
 
@@ -1438,6 +1461,339 @@ def test_nv_sd(torch, seed, path):
     del model
     return run_protocol(torch, "test_nv_sd", cfg, "tsn_sd", 4,
                         PROLOGUE_FORWARD, HEADS_BF16_SLACK)
+
+
+# ---------------------------------------------------------------------------
+# the ninth slice: the training loop, checkpoints on disk, resume, remat
+# ---------------------------------------------------------------------------
+
+class LoopWatch:
+    """Observes a trainer's run through ``ehgr_tpu_torch.train.loop``'s
+    module globals without changing what it does: each train step's
+    launches (counters read before and after the step's call), its step
+    counter and loss; each validation's launches; the non-strict load's
+    skipped keys and the keys the model kept from its init; the loop's
+    timing records (``record.loop``).  ``first_state(state)``, if given,
+    is called with the state before the first step."""
+
+    def __init__(self, torch, first_state=None):
+        from ehgr_tpu_torch.train import loop
+
+        self.torch, self.loop, self.first_state = torch, loop, first_state
+        self.steps, self.val_launches, self.events = [], [], []
+        self.transfer = None
+
+    def __enter__(self):
+        loop, self._saved = self.loop, {}
+        for name in ("make_train_step", "validate", "load_for_model"):
+            self._saved[name] = getattr(loop, name)
+        make, validate, load = (self._saved[k] for k in (
+            "make_train_step", "validate", "load_for_model"))
+
+        def make_train_step(*a, **k):
+            step = make(*a, **k)
+
+            def watched(state, batch, gen):
+                if not self.steps and self.first_state:
+                    self.first_state(state)
+                before = _launches()
+                state, metrics = step(state, batch, gen)
+                after = _launches()
+                self.steps.append(dict(
+                    step=state.step, loss=metrics["loss"].detach(),
+                    launches={k: v - before[k] for k, v in after.items()}))
+                return state, metrics
+            return watched
+
+        def watched_validate(*a, **k):
+            before = _launches()
+            out = validate(*a, **k)
+            after = _launches()
+            self.val_launches.append(sum(after.values()) -
+                                     sum(before.values()))
+            return out
+
+        def watched_load(path, model, strict=False):
+            skipped = load(path, model, strict)
+            keys = self.torch.load(path, map_location="cpu",
+                                   weights_only=True)["state_dict"]
+            self.transfer = dict(
+                skipped=sorted(skipped),
+                kept_from_init=sorted(set(model.state_dict()) - set(keys)))
+            return skipped
+
+        loop.make_train_step = make_train_step
+        loop.validate = watched_validate
+        loop.load_for_model = watched_load
+        self._handler = logging.Handler(logging.INFO)
+        self._handler.emit = lambda r: self.events.append(r.loop) \
+            if hasattr(r, "loop") else None
+        logging.getLogger(loop.__name__).addHandler(self._handler)
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._saved.items():
+            setattr(self.loop, name, fn)
+        logging.getLogger(self.loop.__name__).removeHandler(self._handler)
+        return False
+
+    def summary(self, name, want, steps, res, wall, launches):
+        """Gates shared by the trainer phases: ``steps`` steps, each
+        launching exactly ``want`` (kernel -> count, the others 0), none in
+        validation, finite losses; returns the phase's JSON."""
+        want = {k: want.get(k, 0) for k in launches}
+        losses = [float(s["loss"]) for s in self.steps]
+        for i, s in enumerate(self.steps):
+            if s["launches"] != want:
+                raise AssertionError(f"{name} step {i}: launches "
+                                     f"{s['launches']}, want {want}")
+        if len(self.steps) != steps or any(self.val_launches) or \
+                not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{name}: {len(self.steps)} steps (want "
+                                 f"{steps}), validation launches "
+                                 f"{self.val_launches}, losses {losses}")
+        epochs = [e for e in self.events if e["event"] == "train"]
+        out = dict(
+            steps=len(self.steps), clips=TRAIN_CLIPS, launches=launches,
+            launches_per_step=self.steps[0]["launches"], losses=losses,
+            last_step=self.steps[-1]["step"], wall_s=wall,
+            epochs=[dict(epoch=e["epoch"], steps=e["steps"],
+                         train_s=e["seconds"],
+                         clips_per_s=e["clips"] / e["seconds"],
+                         data_time_s=e["data_time"],
+                         batch_time_s=e["batch_time"]) for e in epochs],
+            validate_s=[e["seconds"] for e in self.events
+                        if e["event"] == "validate"],
+            saves=[dict(tag=e["tag"], epoch=e["epoch"], s=e["seconds"],
+                        bytes=e["bytes"]) for e in self.events
+                   if e["event"] == "save"],
+            restore=[dict(s=e["seconds"], step=e["step"], epoch=e["epoch"])
+                     for e in self.events if e["event"] == "restore"],
+            result={k: v for k, v in res.items() if k != "run_dir"})
+        print(f"{name} " + json.dumps(out), flush=True)
+        return out
+
+
+def loop_argv(tmp, preset, name, *extra):
+    """A trainer's flags: ``preset`` at full width on the synthetic videos
+    (LOOP_VIDEOS to train on, a quarter of them, at least 16, to validate
+    on), 8 clips a batch, runs under ``tmp``, on the card."""
+    return ["--preset", preset, "--synthetic", "--synthetic_videos",
+            str(LOOP_VIDEOS), "--run_dir", os.path.join(tmp, "runs"),
+            "--model_name", name, "--device", "cuda", *extra]
+
+
+def _ckpt(res, name, tag):
+    return os.path.join(res["run_dir"], f"{name}_{tag}_ckpt.pth")
+
+
+def loop_mtmm(torch, tmp):
+    """A main path: ``cli.train_mtmm`` (``ego_mtmm``: ``tsn_mtmm`` at full
+    width, bf16, 'vjp', dropout 0.5) for LOOP_EPOCHS epochs of 8 steps with
+    validation of the live and the EMA weights each epoch; each step
+    launches the four kernels 16 times, validation none; two
+    ``metrics.jsonl`` records and the three checkpoint files."""
+    from ehgr_tpu_torch.cli import train_mtmm
+
+    with LoopWatch(torch) as w:
+        reset_counters()
+        t0 = time.perf_counter()
+        res = train_mtmm.main(loop_argv(tmp, "ego_mtmm", "mtmm", "--epochs",
+                                        str(LOOP_EPOCHS)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    out = w.summary("loop_mtmm", {**SHIFT_STEP, **MEGA_FORWARD},
+                    LOOP_EPOCHS * LOOP_STEPS, res, wall, launches)
+    with open(os.path.join(res["run_dir"], "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    files = sorted(f for f in os.listdir(res["run_dir"]) if f.endswith(".pth"))
+    if len(records) != LOOP_EPOCHS or files != [
+            "mtmm_best_ckpt.pth", "mtmm_ema_best_ckpt.pth",
+            "mtmm_latest_ckpt.pth"]:
+        raise AssertionError(f"loop_mtmm: {len(records)} records, files "
+                             f"{files}")
+    return out, res
+
+
+def loop_sd(torch, tmp, mtmm):
+    """A main path: ``cli.train_sd`` (``ego_sd``) for one epoch from the
+    MTMM ``best`` through ``--checkpoint_path``: the skipped keys exactly
+    the global decoder's, the keys kept from init exactly the exits'; the
+    launches as in ``loop_mtmm``; the exits' top-1 in the result."""
+    from ehgr_tpu_torch.cli import train_sd
+
+    with LoopWatch(torch) as w:
+        reset_counters()
+        t0 = time.perf_counter()
+        res = train_sd.main(loop_argv(
+            tmp, "ego_sd", "sd", "--epochs", "1", "--checkpoint_path",
+            _ckpt(mtmm, "mtmm", "best")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    out = w.summary("loop_sd", {**SHIFT_STEP, **MEGA_FORWARD}, LOOP_STEPS,
+                    res, wall, launches)
+    t = w.transfer
+    if t is None or not t["skipped"] or any(
+            not k.startswith("global_decoder.") for k in t["skipped"]) or \
+            not t["kept_from_init"] or any(
+                not k.startswith(("scala", "middle_fc"))
+                for k in t["kept_from_init"]) or \
+            not {f"mid{i}_top1" for i in (1, 2, 3)} <= set(res):
+        raise AssertionError(f"loop_sd: transfer {t}, result {sorted(res)}")
+    out["transfer"] = dict(skipped=len(t["skipped"]),
+                           kept_from_init=len(t["kept_from_init"]))
+    print("loop_sd_transfer " + json.dumps(out["transfer"]), flush=True)
+    return out, res
+
+
+def loop_resume(torch, tmp, mtmm):
+    """A main path: ``run_training`` on the MTMM config with
+    ``checkpoint_path`` the MTMM ``latest`` and ``resume_full`` (a config
+    field, no flag, as in the JAX package) to LOOP_EPOCHS + 1 epochs: the
+    state before the first step bitwise the file's (parameters,
+    statistics, EMA, momentum, step), the resume at epoch LOOP_EPOCHS,
+    LOOP_STEPS more steps, the last step counter (LOOP_EPOCHS + 1) x
+    LOOP_STEPS."""
+    import dataclasses
+
+    from ehgr_tpu_torch.configs import config_from_args
+    from ehgr_tpu_torch.data.factory import build_train_datasets
+    from ehgr_tpu_torch.train.loop import run_training
+
+    path = _ckpt(mtmm, "mtmm", "latest")
+    argv = loop_argv(tmp, "ego_mtmm", "resumed", "--epochs",
+                     str(LOOP_EPOCHS + 1))
+    cfg = config_from_args([a for a in argv if a not in ("--device", "cuda")],
+                           default_preset="ego_mtmm")
+    cfg = cfg.replace(run=dataclasses.replace(
+        cfg.run, checkpoint_path=path, resume_full=True))
+    restored = {}
+
+    def check(state):
+        saved = torch.load(path, map_location="cpu", weights_only=True)
+        live = {"state_dict": {**state.params, **state.batch_stats},
+                "ema_state_dict": {**state.ema_params,
+                                   **state.ema_batch_stats},
+                "momentum": state.opt_state.momentum}
+        restored["step"] = state.step
+        restored["bitwise"] = all(
+            sorted(live[t]) == sorted(saved[t]) and all(
+                torch.equal(v.detach().cpu(), saved[t][k])
+                for k, v in live[t].items()) for t in live) and \
+            state.step == state.opt_state.step == saved["step"]
+        restored["tensors"] = sum(len(live[t]) for t in live)
+
+    with LoopWatch(torch, check) as w:
+        reset_counters()
+        t0 = time.perf_counter()
+        res = run_training(cfg, "mtmm", *build_train_datasets(cfg, "mtmm"),
+                           device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    out = w.summary("loop_resume", {**SHIFT_STEP, **MEGA_FORWARD},
+                    LOOP_STEPS, res, wall, launches)
+    out["restored"] = restored
+    print("loop_resume_restored " + json.dumps(restored), flush=True)
+    start = [e["epoch"] for e in w.events if e["event"] == "restore"]
+    if not restored.get("bitwise") or \
+            restored["step"] != LOOP_EPOCHS * LOOP_STEPS or \
+            start != [LOOP_EPOCHS] or \
+            out["last_step"] != (LOOP_EPOCHS + 1) * LOOP_STEPS:
+        raise AssertionError(f"loop_resume: restored {restored}, start "
+                             f"epoch {start}, last step {out['last_step']}")
+    return out
+
+
+def loop_test_sd(torch, tmp, sd):
+    """A main path: ``cli.test_sd`` on the trained SD ``best`` (the
+    port's own full-state file) with ``--action_fused prologue`` over 32
+    synthetic videos x 10 clips: every key loaded (``_scorer_probs``
+    raises on a skipped one), 16 ``action_prologue_window`` launches a
+    forward, the first batch's probabilities against the plain model
+    (``run_protocol``)."""
+    from ehgr_tpu_torch.cli import test_sd
+    from ehgr_tpu_torch.configs import config_from_args
+
+    argv = ["--preset", "ego_sd", "--synthetic", "--synthetic_videos", "32",
+            "--checkpoint_path", _ckpt(sd, "sd", "best"), "--action_fused",
+            "prologue"]
+    cfg = config_from_args(argv, default_preset="ego_sd")
+    return run_protocol(torch, "loop_test_sd", cfg, "tsn_sd", 4,
+                        PROLOGUE_FORWARD, HEADS_BF16_SLACK,
+                        main=lambda: test_sd.main(argv + ["--device",
+                                                          "cuda"]))
+
+
+def remat_step(torch, seed):
+    """One MTMM step from one state and one batch, without and with
+    ``remat`` (partial BN off, as in the presets, so every BN trains):
+    the losses equal, each gradient within the bf16 kernel gate of the
+    plain step's, every BN running statistic bitwise equal (the recompute
+    leaves them alone), the peak memory lower with ``remat``; the
+    recompute runs the region's forward again: 32 launches of
+    ``action_stats`` / ``action_apply`` a step with it, 16 without, the
+    shift kernels 16 either way (the region's backward runs once)."""
+    from ehgr_tpu_torch.configs import LossConfig, OptimConfig
+    from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    from ehgr_tpu_torch.train.optim import build_optimizer
+    from ehgr_tpu_torch.train.steps import (create_train_state,
+                                            make_train_step)
+
+    batch = make_train_batches(seed, 1)[0]
+    runs = {}
+    for remat in (False, True):
+        model = _train_model(torch, seed, "vjp", torch.bfloat16, 0.5)
+        model.base_model.remat = remat
+        opt, _ = build_optimizer(model, OptimConfig())
+        state = create_train_state(model, opt)
+        step = make_train_step(model, opt, stage="mtmm",
+                               loss_cfg=LossConfig(depth_size=DEPTH_SIZE),
+                               ema_decay=0.9999, mean=IMAGENET_MEAN,
+                               std=IMAGENET_STD)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_counters()
+        t0 = time.perf_counter()
+        _, m = step(state, batch,
+                    torch.Generator(device="cuda").manual_seed(seed))
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        runs[remat] = dict(
+            loss=loss, ms=ms, launches=_launches(),
+            peak_bytes=torch.cuda.max_memory_allocated(),
+            step_peak_bytes=torch.cuda.max_memory_allocated() - base,
+            grads={k: p.grad.float() for k, p in model.named_parameters()},
+            stats={k: v.clone() for k, v in state.batch_stats.items()})
+        del model, state, step, opt
+    plain, rem = runs[False], runs[True]
+    grad_rel = {k: _rel_err(rem["grads"][k], g)[1]
+                for k, g in plain["grads"].items()}
+    stats_equal = all(torch.equal(rem["stats"][k], v)
+                      for k, v in plain["stats"].items())
+    worst = max(grad_rel, key=grad_rel.get)
+    out = {("remat" if r else "plain"): {k: v[k] for k in (
+        "loss", "ms", "launches", "peak_bytes", "step_peak_bytes")}
+        for r, v in runs.items()}
+    out.update(worst_grad_rel=grad_rel[worst], worst_leaf=worst,
+               grad_tol=TOL["bfloat16"], stats_bitwise=stats_equal)
+    print("remat " + json.dumps(out), flush=True)
+    want = {**SHIFT_STEP, **MEGA_FORWARD}
+    want_remat = {**want, **{k: 2 * v for k, v in MEGA_FORWARD.items()}}
+    for r, w in ((False, want), (True, want_remat)):
+        got = runs[r]["launches"]
+        if got != {k: w.get(k, 0) for k in got}:
+            raise AssertionError(f"remat={r}: launches {got}, want {w}")
+    if rem["loss"] != plain["loss"] or grad_rel[worst] > TOL["bfloat16"] \
+            or not stats_equal or \
+            not rem["step_peak_bytes"] < plain["step_peak_bytes"]:
+        raise AssertionError(f"remat vs plain step: {out}")
+    return out
 
 
 def _device_profile(torch, fn):
@@ -2061,6 +2417,14 @@ def main(argv=None) -> int:
     ego = phase("test_ego", test_ego, torch, args.seed, ego_pth)
     nv_sd = phase("test_nv_sd", test_nv_sd, torch, args.seed,
                   os.path.join(tmp, "nv_sd.pth"))
+
+    # the trainers: stage 1 -> stage 2 -> resume -> the 4-head test, each
+    # through its entry point and the port's checkpoint files; then remat
+    l_mtmm, mtmm_res = phase("loop_mtmm", loop_mtmm, torch, tmp)
+    l_sd, sd_res = phase("loop_sd", loop_sd, torch, tmp, mtmm_res)
+    l_resume = phase("loop_resume", loop_resume, torch, tmp, mtmm_res)
+    l_test_sd = phase("loop_test_sd", loop_test_sd, torch, tmp, sd_res)
+    remat = phase("remat", remat_step, torch, args.seed)
     tmpdir.cleanup()
     coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
@@ -2078,7 +2442,9 @@ def main(argv=None) -> int:
              "sd_serve_mega": deploy["serve_mega"],
              **{f"tsn_middle{k}": v
                 for k, v in deploy["middles"].items()},
-             "test_ego": ego, "test_nv_sd": nv_sd}
+             "test_ego": ego, "test_nv_sd": nv_sd, "loop_mtmm": l_mtmm,
+             "loop_sd": l_sd, "loop_resume": l_resume,
+             "loop_test_sd": l_test_sd}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -2090,7 +2456,9 @@ def main(argv=None) -> int:
                       "sd_transfer": transfer, "sd_train": sd_trained,
                       "sd_parity": sd_parity, "sd_deploy": deploy,
                       "test_ego": ego, "test_nv_sd": nv_sd,
-                      "window_coverage": coverage,
+                      "loop_mtmm": l_mtmm, "loop_sd": l_sd,
+                      "loop_resume": l_resume, "loop_test_sd": l_test_sd,
+                      "remat": remat, "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -120,8 +120,8 @@ class RunConfig:
     save_depth_images: bool = False
     seed: int = 0
     checkpoint_path: str = ""         # weights to start from (--checkpoint_path)
-    # restore the full train state (optimizer, EMA, step), not the weights
-    # alone (ROADMAP: queue 1, item 2, the loop and checkpoints)
+    # restore the full train state (optimizer, EMA, step) from
+    # checkpoint_path, not the weights alone
     resume_full: bool = False
     # write checkpoints once at the end of training instead of every epoch
     ckpt_light: bool = False

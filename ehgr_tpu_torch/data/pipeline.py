@@ -48,6 +48,11 @@ class Loader:
         self.drop_last = drop_last
         self._epoch = 0
 
+    def set_epoch(self, epoch: int) -> None:
+        """Shuffle the next pass as pass ``epoch`` (counted from 0): a
+        resumed trainer sees the batches of an uninterrupted run."""
+        self._epoch = epoch
+
     def __len__(self) -> int:
         n = len(self.dataset)
         return n // self.batch_size if self.drop_last else \

@@ -10,11 +10,11 @@ DeviceLike = Optional[Union[str, torch.device]]
 
 
 def resolve_device(device: DeviceLike = None) -> torch.device:
-    """``None`` -> ``cuda`` (raises when CUDA is missing); anything else is
-    taken as given, so CPU runs pass ``device="cpu"`` explicitly."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
+    """``None`` -> ``cuda``; anything else is taken as given, so CPU runs
+    pass ``device="cpu"`` explicitly.  A CUDA device raises when CUDA is
+    missing: nothing falls back to the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    return dev

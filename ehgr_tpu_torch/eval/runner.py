@@ -24,7 +24,8 @@ from ehgr_tpu_torch.data.factory import build_test_dataset
 from ehgr_tpu_torch.data.pipeline import Loader
 from ehgr_tpu_torch.device import DeviceLike, resolve_device
 from ehgr_tpu_torch.eval.metrics import ConfusionMatrix, topk_correct
-from ehgr_tpu_torch.models.tsn import TSN, variant
+from ehgr_tpu_torch.models.factory import build_model
+from ehgr_tpu_torch.models.tsn import TSN
 from ehgr_tpu_torch.ops.preprocess_device import normalize_clip
 from ehgr_tpu_torch.train.checkpoints import load_for_model
 
@@ -34,22 +35,7 @@ def _build_model(cfg: Config, arch: str,
     """``arch`` built from ``cfg`` on ``device`` (default CUDA) in eval
     mode, with the weights of ``cfg.run.checkpoint_path`` when it is set;
     returns the model and the checkpoint's keys it did not take."""
-    if cfg.model.quantize:
-        raise NotImplementedError(
-            f"quantize={cfg.model.quantize!r}: int8 inference is not ported "
-            "yet (ROADMAP: queue 1, item 5)")
-    model = variant(arch, num_class=cfg.model.num_classes,
-                    num_segments=cfg.model.num_segments,
-                    base_model=cfg.model.base_model,
-                    temporal=(cfg.model.temporal_module
-                              if cfg.model.is_shift else "none"),
-                    shift_div=cfg.model.shift_div,
-                    dropout=cfg.model.dropout,
-                    partial_bn=cfg.model.partial_bn,
-                    action_fused=(cfg.model.action_fused or None),
-                    action_stages=tuple(cfg.model.action_stages),
-                    dtype=getattr(torch, cfg.model.dtype),
-                    device=resolve_device(device))
+    model = build_model(cfg.model, arch, resolve_device(device))
     skipped = []
     if cfg.run.checkpoint_path:
         skipped = load_for_model(cfg.run.checkpoint_path, model)

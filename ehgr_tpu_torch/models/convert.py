@@ -52,6 +52,9 @@ _DECODER_SEQ = {"conv0": "0", "bn0": "1", "conv1": "4", "bn1": "5",
 # SepConv layers -> their indices in the reference's nn.Sequential ``op``
 _SEPCONV_SEQ = {"dw1": "0", "pw1": "1", "bn1": "2", "dw2": "4", "pw2": "5",
                 "bn2": "6"}
+# the JAX optimizer pads ``hyper['lr_steps']`` to a fixed width with this
+# epoch, which no run reaches
+_LR_STEP_PAD = 2 ** 30
 # modules of surfaces the port does not have yet (the joint stage's heads)
 _NOT_PORTED = ("local_decoder", "local_skel_decoder", "global_skel_decoder",
                "text_encoder")
@@ -126,3 +129,41 @@ def load_jax_variables(model: nn.Module,
                        flat: Mapping[Tuple[str, ...], np.ndarray]) -> None:
     """Load converted JAX weights into ``model`` with ``strict=True``."""
     model.load_state_dict(state_dict_from_jax(flat), strict=True)
+
+
+def convert_train_state(flat: Mapping[Tuple[str, ...], np.ndarray]
+                        ) -> Dict[str, object]:
+    """A JAX ``TrainState`` as numpy arrays -> the port's checkpoint payload
+    (``ehgr_tpu_torch.train.checkpoints``), so a port run can resume from a
+    JAX run.
+
+    ``flat`` is the state flattened to ``{(tree, *path): array}`` with tree
+    one of ``params``, ``batch_stats``, ``ema_params``, ``ema_batch_stats``,
+    ``momentum`` (the optimizer's buffers, ``opt_state.momentum``),
+    ``hyper`` (``opt_state.hyper``: ``group_lr/<group>``, ``lr_steps``,
+    ``gamma``, ``momentum``, ``weight_decay``, ``steps_per_epoch``) and the
+    path ``("step",)``.  Every tree is converted by the key and transpose
+    rules above; the momentum takes its parameter's."""
+    def trees(*names):
+        return {(coll,) + p[1:]: a for p, a in flat.items()
+                for name, coll in names if p[0] == name}
+
+    hyper = {p[1:]: np.asarray(a) for p, a in flat.items()
+             if p[0] == "hyper"}
+    f32 = lambda k: float(np.float32(hyper[(k,)]))  # noqa: E731
+    return {
+        "state_dict": state_dict_from_jax(trees(("params", "params"),
+                                                ("batch_stats",
+                                                 "batch_stats"))),
+        "ema_state_dict": state_dict_from_jax(trees(
+            ("ema_params", "params"), ("ema_batch_stats", "batch_stats"))),
+        "momentum": state_dict_from_jax(trees(("momentum", "params"))),
+        "step": int(flat[("step",)]),
+        "schedule": {
+            "group_lr": {p[1]: float(a) for p, a in hyper.items()
+                         if p[0] == "group_lr"},
+            "lr_steps": [int(s) for s in hyper[("lr_steps",)].reshape(-1)
+                         if s < _LR_STEP_PAD],
+            "gamma": f32("gamma"), "momentum": f32("momentum"),
+            "weight_decay": f32("weight_decay"),
+            "steps_per_epoch": int(hyper[("steps_per_epoch",)])}}

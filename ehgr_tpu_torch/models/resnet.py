@@ -4,18 +4,22 @@
 torchvision ResNet v1 (stride on ``conv2``, 1x1 downsample); ``temporal``
 decides what ``conv1`` of each bottleneck is at build time; ``partial_bn``
 keeps every BN but the stem's on its running statistics in training,
-the ACTION ``p3_bn1`` included.  Module names
+the ACTION ``p3_bn1`` included; ``remat`` recomputes each bottleneck's
+forward in the backward pass instead of keeping its activations (the JAX
+``nn.remat(Bottleneck)``).  Module names
 follow the torch keys of ``export_state_dict`` (``layer{i}.{j}``,
 ``downsample.0/1``).  Activations are ``[N*T, C, H, W]`` channels_last.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ehgr_tpu_torch.models.layers import Conv2d
 from ehgr_tpu_torch.models.norm import BatchNorm
@@ -66,19 +70,45 @@ class Bottleneck(nn.Module):
         return torch.relu(out + residual)
 
 
+@contextlib.contextmanager
+def _buffers_kept(module: nn.Module):
+    """Restore ``module``'s buffers (BN running statistics and counters) on
+    exit.  Around a rematerialised block's recompute: torch's BN, and the
+    ACTION region's ME BN, update their statistics on every training
+    forward, and the recompute is a second forward of the same batch;
+    flax's remat returns the statistics of the first forward alone."""
+    kept = [(b, b.clone()) for b in module.buffers()]
+    try:
+        yield
+    finally:
+        with torch.no_grad():
+            for b, v in kept:
+                b.copy_(v)
+
+
+def _run_remat(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    return checkpoint(block, x, use_reentrant=False,
+                      preserve_rng_state=False,   # a block draws nothing
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          _buffers_kept(block)))
+
+
 class ResNetBackbone(nn.Module):
     """ResNet with per-stage taps: ``forward`` returns ``stem``
     (post-maxpool), ``layer1..4`` and ``pool`` (global average,
     ``[NT, C]``).  ``stages < 4`` builds and runs only the first ones (a
-    truncated deploy model has no deeper weights, and no ``pool`` tap)."""
+    truncated deploy model has no deeper weights, and no ``pool`` tap).
+    ``remat`` takes effect where autograd records (training)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  temporal: str = "action", n_segment: int = 8,
                  shift_div: int = 8, action_fused=None,
                  action_stages: Sequence[int] = (1, 2, 3, 4),
-                 partial_bn: bool = True, stages: int = 4, device=None):
+                 partial_bn: bool = True, stages: int = 4,
+                 remat: bool = False, device=None):
         super().__init__()
         self.stages = stages
+        self.remat = remat
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
                             device=device)
         self.bn1 = BatchNorm(64, device=device)
@@ -107,7 +137,12 @@ class ResNetBackbone(nn.Module):
         for i in range(1, 5):
             if i > self.stages:
                 return taps
-            x = getattr(self, f"layer{i}")(x)
+            layer = getattr(self, f"layer{i}")
+            if self.remat and torch.is_grad_enabled():
+                for block in layer:
+                    x = _run_remat(block, x)
+            else:
+                x = layer(x)
             taps[f"layer{i}"] = x
         taps["pool"] = x.mean((2, 3))          # AdaptiveAvgPool2d(1)
         return taps

@@ -45,7 +45,9 @@ class TSN(nn.Module):
     normal for convs, ``N(0, 0.001)`` for the heads as in the reference.
     ``partial_bn`` keeps every backbone BN but the stem's on its running
     statistics in training; ``dropout`` acts on the pooled feature in
-    training, drawn from the ``generator`` passed to ``forward``."""
+    training, drawn from the ``generator`` passed to ``forward``.
+    ``remat`` recomputes each bottleneck in the backward pass (see
+    ``ResNetBackbone``)."""
 
     def __init__(self, num_class: int, num_segments: int,
                  base_model: str = "resnet50", temporal: str = "action",
@@ -53,7 +55,7 @@ class TSN(nn.Module):
                  partial_bn: bool = True, with_depth: bool = False,
                  with_sd: bool = False, truncate_at: int = 0,
                  action_fused: Any = None, action_stages=(1, 2, 3, 4),
-                 dtype: torch.dtype = torch.float32,
+                 remat: bool = False, dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -68,7 +70,7 @@ class TSN(nn.Module):
             base_model, temporal=temporal, n_segment=num_segments,
             shift_div=shift_div, action_fused=action_fused,
             action_stages=action_stages, partial_bn=partial_bn,
-            stages=truncate_at or 4, device=dev)
+            stages=truncate_at or 4, remat=remat, device=dev)
         width = _FEATURES[base_model]
         self.exits = (truncate_at,) if truncate_at else \
             (1, 2, 3) if with_sd else ()
@@ -142,7 +144,7 @@ def variant(arch: str, num_class: int, num_segments: int,
             base_model: str = "resnet50", temporal: str = "action",
             shift_div: int = 8, dropout: float = 0.5,
             partial_bn: bool = True, action_fused: Any = None,
-            action_stages: Any = (1, 2, 3, 4),
+            action_stages: Any = (1, 2, 3, 4), remat: bool = False,
             dtype: torch.dtype = torch.float32, device: DeviceLike = None,
             generator: Optional[torch.Generator] = None) -> TSN:
     """Build the model surface ``arch`` (``tsn``, ``tsn_mtmm``, ``tsn_sd``
@@ -157,5 +159,5 @@ def variant(arch: str, num_class: int, num_segments: int,
                shift_div=shift_div, dropout=dropout, partial_bn=partial_bn,
                with_depth=arch == "tsn_mtmm", with_sd=arch == "tsn_sd",
                truncate_at=_MIDDLE.get(arch, 0), action_fused=action_fused,
-               action_stages=tuple(action_stages), dtype=dtype,
-               device=device, generator=generator)
+               action_stages=tuple(action_stages), remat=remat,
+               dtype=dtype, device=device, generator=generator)

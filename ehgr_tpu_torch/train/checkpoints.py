@@ -1,20 +1,35 @@
-"""Cross-stage weight transfer and loading weights from a file
-(counterpart of ``merge_variables`` and ``load_for_model`` in
-``ehgr_tpu/train/checkpoints.py``).
+"""Checkpoints on disk, cross-stage weight transfer and loading weights
+from a file (counterpart of ``ehgr_tpu/train/checkpoints.py``).
 
 ``merge_state_dict`` is the reference's ``load_state_dict(strict=False)``,
 through which Stage 2 (``tsn_sd``) absorbs the Stage-1 ``tsn_mtmm`` weights
 while its new exits keep their init, and a truncated ``tsn_middleK`` takes
 its stages and exit K from a ``tsn_sd``.  ``load_for_model`` reads a
-reference ``.pth`` / ``.pth.tar`` file into a model through it.  The orbax
-checkpoints the JAX package writes, and the port's own checkpoint manager,
-are ROADMAP items (queue 1, item 2).
+reference ``.pth`` / ``.pth.tar`` file, or a full-state file of
+``CheckpointManager``, into a model through it.
+
+``CheckpointManager`` writes the trainer's ``latest`` / ``best`` /
+``ema_best`` as one file a tag, ``<model_name>_<tag>_ckpt.pth``, with
+``torch.save``: the JAX package's orbax directories need JAX's stack, which
+the port does not import.  The payload (``state_payload``) holds only what
+``torch.load(weights_only=True)`` accepts, every tensor on the CPU:
+
+  ``state_dict``      the live parameters and BN statistics (torch keys, so
+                      ``load_for_model`` and the JAX package's
+                      ``load_torch_checkpoint`` both read it)
+  ``ema_state_dict``  the EMA of both
+  ``momentum``        the optimizer's buffers, keyed like the parameters
+  ``step``            updates taken
+  ``schedule``        the optimizer's lr per group, ``lr_steps``, gamma,
+                      momentum, weight decay and ``steps_per_epoch`` (read
+                      only to warn when a resume's config differs)
 """
 
 from __future__ import annotations
 
 import os
-from typing import List, Mapping
+import tempfile
+from typing import Dict, List, Mapping
 
 import torch
 from torch import nn
@@ -42,7 +57,9 @@ def load_for_model(path: str, model: nn.Module,
     and return the keys of the file that were not copied.
 
     The file holds a reference payload ``{'state_dict': ...}`` (other
-    entries, such as the optimizer's, are ignored) or a bare state dict,
+    entries, such as the optimizer's, are ignored: a full-state file of
+    ``CheckpointManager`` gives its live weights, not the EMA, as the JAX
+    loader does) or a bare state dict,
     read with ``torch.load(weights_only=True)``.  Keys lose a leading
     ``module.`` (a ``DataParallel`` save); when no key names
     ``base_model.``, a bare backbone's keys gain that prefix where the
@@ -54,8 +71,10 @@ def load_for_model(path: str, model: nn.Module,
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory (an orbax checkpoint of the JAX "
-            "package); reading orbax is not ported (ROADMAP: queue 1, item "
-            "2, the loop and checkpoints)")
+            "package), and the port does not read orbax (ROADMAP: §1, what "
+            "stays out of the port): on the JAX side, write the weights as "
+            "a .pth with ehgr_tpu.models.torch_import.export_state_dict and "
+            "pass that file")
     payload = torch.load(path, map_location="cpu", weights_only=True)
     sd = payload.get("state_dict", payload) if isinstance(payload, dict) \
         else payload
@@ -74,3 +93,83 @@ def load_for_model(path: str, model: nn.Module,
                            f"{missing[:10]} (+{max(0, len(missing) - 10)} "
                            "more)")
     return skipped
+
+
+def state_payload(state, opt) -> Dict:
+    """The checkpoint payload of a ``TrainState`` and its ``SgdPolicies``
+    (see the module docstring): host copies, also of a state on the CPU, so
+    the state may train on while the payload waits to be written."""
+    def host(tensors):
+        return {k: v.detach().to("cpu", copy=True)
+                for k, v in tensors.items()}
+
+    return {"state_dict": host({**state.params, **state.batch_stats}),
+            "ema_state_dict": host({**state.ema_params,
+                                    **state.ema_batch_stats}),
+            "momentum": host(state.opt_state.momentum),
+            "step": int(state.step),
+            "schedule": opt.schedule()}
+
+
+@torch.no_grad()
+def load_train_state(path: str, state) -> Dict:
+    """Restore a full-state file into ``state`` in place (parameters, BN
+    statistics, their EMA, the momentum and both step counters) and return
+    the file's ``schedule``.  Every key and shape must match: a resume that
+    would leave a tensor at its init raises ``KeyError``."""
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    pairs = (("state_dict", {**state.params, **state.batch_stats}),
+             ("ema_state_dict", {**state.ema_params,
+                                 **state.ema_batch_stats}),
+             ("momentum", state.opt_state.momentum))
+    for name, dst in pairs:
+        src = payload[name]
+        if sorted(src) != sorted(dst) or any(
+                src[k].shape != v.shape for k, v in dst.items()):
+            missing = sorted(set(dst) - set(src))
+            extra = sorted(set(src) - set(dst))
+            raise KeyError(f"{path}: {name} does not match the model "
+                           f"(missing {missing[:10]}, unexpected "
+                           f"{extra[:10]}, or other shapes)")
+        for k, v in dst.items():
+            v.copy_(src[k])
+    state.step = state.opt_state.step = int(payload["step"])
+    return payload["schedule"]
+
+
+class CheckpointManager:
+    """One full-state file a tag in ``run_dir``, with the reference's
+    ``latest`` / ``best`` / ``ema_best`` naming."""
+
+    def __init__(self, run_dir: str, model_name: str):
+        self.run_dir = os.path.abspath(run_dir)
+        self.model_name = model_name
+        os.makedirs(self.run_dir, exist_ok=True)
+
+    def path(self, tag: str) -> str:
+        return os.path.join(self.run_dir, f"{self.model_name}_{tag}_ckpt.pth")
+
+    def save(self, tag: str, payload: Dict) -> str:
+        """Write ``payload`` (``state_payload``'s) as ``tag``: into a
+        temporary file of the same directory, flushed to disk, then renamed
+        over the old one, so a crash mid-write leaves the earlier file."""
+        path = self.path(tag)
+        fd, tmp = tempfile.mkstemp(dir=self.run_dir, suffix=".tmp",
+                                   prefix=os.path.basename(path) + ".")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                torch.save(payload, f)
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, path)
+        except BaseException:
+            os.unlink(tmp)
+            raise
+        return path
+
+    def restore(self, tag: str, state) -> Dict:
+        """``load_train_state`` of ``tag`` into ``state``."""
+        return load_train_state(self.path(tag), state)
+
+    def exists(self, tag: str) -> bool:
+        return os.path.isfile(self.path(tag))

@@ -10,6 +10,9 @@
 * Step decay: ``factor = gamma ** #(lr_steps passed)``, taken at epoch - 1
   because the reference adjusts the lr at the end of each epoch.
 * ``clip_gradient``: optax's ``clip_by_global_norm``.
+* Resume: the schedule is the optimizer's own, built from the current
+  config; a full-state checkpoint carries the schedule it was trained with
+  only so that ``adopt_config_hyper`` can warn where the two differ.
 
 Parameters and momentum buffers are updated in place (no second copy of
 either).
@@ -18,7 +21,7 @@ either).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -115,6 +118,14 @@ class SgdPolicies:
         self.steps_per_epoch = steps_per_epoch
         self.clip = clip_gradient
 
+    def schedule(self) -> Dict[str, object]:
+        """The schedule as plain values (a checkpoint's ``schedule``)."""
+        return {"group_lr": {g: float(v) for g, v in self.group_lr.items()},
+                "lr_steps": list(self.lr_steps), "gamma": float(self.gamma),
+                "momentum": self.momentum,
+                "weight_decay": self.weight_decay,
+                "steps_per_epoch": self.steps_per_epoch}
+
     def init(self, params: Mapping[str, torch.Tensor]) -> SgdState:
         return SgdState(step=0, momentum={
             k: torch.zeros_like(p) for k, p in params.items()})
@@ -149,6 +160,25 @@ class SgdPolicies:
                                      float(self.group_lr[label] * factor))
             torch._foreach_sub_([params[k] for k in ks], upd)
         state.step += 1
+
+
+def adopt_config_hyper(schedule: Mapping[str, object], opt: SgdPolicies,
+                       log=None) -> List[str]:
+    """The resume half of the JAX ``adopt_config_hyper``: after a
+    full-state resume the CURRENT config's schedule applies (``opt``'s,
+    which the port never takes from a checkpoint).  Returns the fields of
+    the checkpointed ``schedule`` that differ from ``opt``'s, and warns
+    naming them when ``log`` is given."""
+    fresh = opt.schedule()
+    diffs = [k for k in ("momentum", "weight_decay", "gamma", "lr_steps",
+                         "steps_per_epoch") if schedule[k] != fresh[k]]
+    diffs += [f"lr[{g}]" for g in fresh["group_lr"]
+              if schedule["group_lr"].get(g) != fresh["group_lr"][g]]
+    if diffs and log is not None:
+        log.warning(
+            "resume: checkpointed schedule differs from config on "
+            "%s; using the CURRENT config's schedule", diffs)
+    return diffs
 
 
 def build_optimizer(model: nn.Module, cfg_optim, fc_lr5: bool = True,

@@ -51,7 +51,14 @@ def test_every_module_is_found():
                  "ehgr_tpu_torch.train.ema",
                  "ehgr_tpu_torch.train.steps",
                  "ehgr_tpu_torch.eval.inference",
-                 "ehgr_tpu_torch.models.convert"):
+                 "ehgr_tpu_torch.models.convert",
+                 "ehgr_tpu_torch.models.factory",
+                 "ehgr_tpu_torch.train.loop",
+                 "ehgr_tpu_torch.utils.meters",
+                 "ehgr_tpu_torch.utils.metrics_log",
+                 "ehgr_tpu_torch.cli.train",
+                 "ehgr_tpu_torch.cli.train_mtmm",
+                 "ehgr_tpu_torch.cli.train_sd"):
         assert want in mods
 
 
