@@ -147,31 +147,30 @@ def _tags(run_dir, suffix):
 
 
 def jax_training(cfg, stage):
-    """The JAX loop's result (with the checkpoint tags it wrote under
+    """The JAX loop's result (with the tags of its checkpoint writes under
     ``"tags"``) and the payloads of the states it wrote as ``latest``
-    (stage 1: the first and the last) and, in stage 1, last as ``best``;
-    its orbax directories are then removed (a few hundred MB)."""
-    saved = {"latest": [], "best": None}
+    (stage 1: the first and the last) and, in stage 1, last as ``best``.
+    The writes are recorded, not made: orbax would write a few hundred MB
+    that nothing here reads."""
+    saved = {"latest": [], "best": None, "tags": set()}
 
     class Recording(jloop.CheckpointManager):
         def save(self, tag, state):
             payload = convert_train_state(flat_state(state))
+            saved["tags"].add(tag)
             if tag == "latest":        # stage 2 needs its last alone
                 saved["latest"] = saved["latest"][:stage == "mtmm"] + [
                     payload]
             elif tag == "best" and stage == "mtmm":
                 saved["best"] = payload
-            return super().save(tag, state)
+            return self._path(tag)
 
     with pytest.MonkeyPatch.context() as mp, tiny_resnet():
         mp.setattr(jloop, "CheckpointManager", Recording)
         res = jloop.run_training(
             cfg, stage, *jfactory.build_train_datasets(cfg, stage),
             max_steps_per_epoch=2)
-    res["tags"] = _tags(res["run_dir"], "_ckpt")
-    for f in os.listdir(res["run_dir"]):
-        if f.endswith("_ckpt"):
-            shutil.rmtree(os.path.join(res["run_dir"], f))
+    res["tags"] = sorted(saved.pop("tags"))
     return res, saved
 
 
