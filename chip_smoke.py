@@ -73,8 +73,8 @@ Phases; any miss raises and the run exits nonzero:
    ``latest`` / ``best`` / ``ema_best`` files), ``cli.train_sd`` for one
    epoch from the MTMM ``best`` (``--checkpoint_path``), ``run_training``
    resuming the MTMM ``latest`` with ``resume_full`` (the state restored
-   bitwise, 8 more steps) and ``cli.test_sd`` (``'prologue'``) on the SD
-   ``best``; each train step launching the four kernels 16 times and
+   bitwise, 8 more steps) and ``run_test`` on the config ``cli.test_sd``
+   makes (``'prologue'``) on the SD ``best``; each train step launching the four kernels 16 times and
    validation none; clips/s of each epoch's train part, data and batch
    time, validation seconds, each checkpoint write's seconds and bytes and
    the restore's seconds; then one MTMM step without and with ``remat``:
@@ -208,6 +208,10 @@ SHIFT_STEP = {"learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
 # 8 clips an epoch) and epochs of the MTMM run (the resume adds one)
 LOOP_VIDEOS, LOOP_EPOCHS = 64, 2
 LOOP_STEPS = LOOP_VIDEOS // TRAIN_CLIPS
+# a step with remat against the same step without: each gradient's max
+# |diff| over max |plain| (the recompute runs the same kernels on the same
+# inputs; measured bitwise equal on the H100, PERF.md)
+REMAT_GRAD_TOL = 1e-5
 
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
@@ -1335,10 +1339,9 @@ def _scorer_probs(torch, cfg, arch, heads, frames):
     return out
 
 
-def run_protocol(torch, name, cfg, arch, heads, want, slack, main=None):
+def run_protocol(torch, name, cfg, arch, heads, want, slack):
     """A main path: ``run_test(cfg, arch, heads)`` on the card (host
-    loader, upload, scorer, votes, metrics), or ``main()`` (a test CLI that
-    runs it from the flags ``cfg`` was parsed from), with the kernels'
+    loader, upload, scorer, votes, metrics), with the kernels'
     launch counters zeroed just before and read just after; each forward
     (one video of RUN_CLIPS clips) must launch exactly ``want``.  Then, apart:
     the loader alone and the scorer alone over the same batches (the wall's
@@ -1353,8 +1356,7 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack, main=None):
 
     reset_counters()
     t0 = time.perf_counter()
-    res = main() if main else runner.run_test(cfg, arch=arch, heads=heads,
-                                              device="cuda")
+    res = runner.run_test(cfg, arch=arch, heads=heads, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _launches()
@@ -1369,11 +1371,8 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack, main=None):
     names = ["final"] + [f"mid{i}" for i in range(1, heads)]
     keys = {"n_videos", "confusion"} | {f"{n}_top{k}" for n in names
                                         for k in (1, 5)}
-    if main:                    # the CLIs return the results without it
-        keys.discard("confusion")
     if res["n_videos"] != videos or set(res) != keys or any(
-            res["confusion"][n].m.sum() != videos
-            for n in names if "confusion" in keys):
+            res["confusion"][n].m.sum() != videos for n in names):
         raise AssertionError(f"{name}: run_test gave {sorted(res)}, "
                              f"n_videos {res['n_videos']}, want {videos}")
 
@@ -1708,30 +1707,27 @@ def loop_resume(torch, tmp, mtmm):
 
 
 def loop_test_sd(torch, tmp, sd):
-    """A main path: ``cli.test_sd`` on the trained SD ``best`` (the
-    port's own full-state file) with ``--action_fused prologue`` over 32
-    synthetic videos x 10 clips: every key loaded (``_scorer_probs``
-    raises on a skipped one), 16 ``action_prologue_window`` launches a
-    forward, the first batch's probabilities against the plain model
-    (``run_protocol``)."""
-    from ehgr_tpu_torch.cli import test_sd
+    """A main path: ``run_test`` on the trained SD ``best`` (the port's own
+    full-state file) with the config ``cli.test_sd`` makes of its flags,
+    ``--action_fused prologue``, over 32 synthetic videos x 10 clips:
+    every key loaded (``_scorer_probs`` raises on a skipped one), 16
+    ``action_prologue_window`` launches a forward, the first batch's
+    probabilities against the plain model (``run_protocol``)."""
     from ehgr_tpu_torch.configs import config_from_args
 
-    argv = ["--preset", "ego_sd", "--synthetic", "--synthetic_videos", "32",
-            "--checkpoint_path", _ckpt(sd, "sd", "best"), "--action_fused",
-            "prologue"]
-    cfg = config_from_args(argv, default_preset="ego_sd")
+    cfg = config_from_args(
+        ["--preset", "ego_sd", "--synthetic", "--synthetic_videos", "32",
+         "--checkpoint_path", _ckpt(sd, "sd", "best"), "--action_fused",
+         "prologue"], default_preset="ego_sd")
     return run_protocol(torch, "loop_test_sd", cfg, "tsn_sd", 4,
-                        PROLOGUE_FORWARD, HEADS_BF16_SLACK,
-                        main=lambda: test_sd.main(argv + ["--device",
-                                                          "cuda"]))
+                        PROLOGUE_FORWARD, HEADS_BF16_SLACK)
 
 
 def remat_step(torch, seed):
     """One MTMM step from one state and one batch, without and with
     ``remat`` (partial BN off, as in the presets, so every BN trains):
-    the losses equal, each gradient within the bf16 kernel gate of the
-    plain step's, every BN running statistic bitwise equal (the recompute
+    the losses equal, each gradient within REMAT_GRAD_TOL of the plain
+    step's, every BN running statistic bitwise equal (the recompute
     leaves them alone), the peak memory lower with ``remat``; the
     recompute runs the region's forward again: 32 launches of
     ``action_stats`` / ``action_apply`` a step with it, 16 without, the
@@ -1781,7 +1777,7 @@ def remat_step(torch, seed):
         "loss", "ms", "launches", "peak_bytes", "step_peak_bytes")}
         for r, v in runs.items()}
     out.update(worst_grad_rel=grad_rel[worst], worst_leaf=worst,
-               grad_tol=TOL["bfloat16"], stats_bitwise=stats_equal)
+               grad_tol=REMAT_GRAD_TOL, stats_bitwise=stats_equal)
     print("remat " + json.dumps(out), flush=True)
     want = {**SHIFT_STEP, **MEGA_FORWARD}
     want_remat = {**want, **{k: 2 * v for k, v in MEGA_FORWARD.items()}}
@@ -1789,7 +1785,7 @@ def remat_step(torch, seed):
         got = runs[r]["launches"]
         if got != {k: w.get(k, 0) for k in got}:
             raise AssertionError(f"remat={r}: launches {got}, want {w}")
-    if rem["loss"] != plain["loss"] or grad_rel[worst] > TOL["bfloat16"] \
+    if rem["loss"] != plain["loss"] or grad_rel[worst] > REMAT_GRAD_TOL \
             or not stats_equal or \
             not rem["step_peak_bytes"] < plain["step_peak_bytes"]:
         raise AssertionError(f"remat vs plain step: {out}")

@@ -1,11 +1,10 @@
-"""Host-side metering and logging utilities (the port's own copy of
-``ehgr_tpu/utils/meters.py``; the reference's ``utils.py:54-92``)."""
+"""Host-side meters (the port's own copy of ``AverageMeter`` and
+``StepTimer`` from ``ehgr_tpu/utils/meters.py``; the reference's
+``utils.py:54-71``)."""
 
 from __future__ import annotations
 
-import csv
 import time
-from typing import Dict, List
 
 
 class AverageMeter:
@@ -26,27 +25,6 @@ class AverageMeter:
         self.sum += float(val) * n
         self.count += n
         self.avg = self.sum / max(self.count, 1)
-
-
-class CsvLogger:
-    """Append-mode CSV logger keyed by header names (ref ``utils.py:74-92``)."""
-
-    def __init__(self, path: str, header: List[str], resume: bool = False):
-        self.path = path
-        self.header = header
-        mode = "a" if resume else "w"
-        self._fh = open(path, mode, newline="")
-        self._writer = csv.writer(self._fh)
-        if not resume:
-            self._writer.writerow(header)
-            self._fh.flush()
-
-    def log(self, row: Dict[str, object]):
-        self._writer.writerow([row.get(k, "") for k in self.header])
-        self._fh.flush()
-
-    def close(self):
-        self._fh.close()
 
 
 class StepTimer:

@@ -16,20 +16,21 @@ init (the two packages draw other initial weights).
 Compared after each stage: every tensor of the final state (parameters and
 their EMA as deltas from the stage's start, BN statistics, momentum) within
 ``MTMM_TOL`` / ``SD_TOL`` (the tiny model's ReLU kinks, see there); in a
-tree where the two f32 runs differ beyond that, a float64 run of the
-port's loop decides by the card's fp32 gate (see ``X``): JAX's f32
-gradient of the loop's first batch lies 28% of its largest value from
-float64 at layer3.0.downsample.0, the port's 6e-5, and that gap carries
-to the end of both stages; each epoch's
-live and EMA validation metrics equal, ``best_top1`` and ``ema_best_top1``
-equal, the same checkpoint tags written, and the ``metrics.jsonl`` train
-loss within 1e-4.  Each loop runs once a stage and module (``_RUNS``); the
-JAX states are recorded at each checkpoint write."""
+tree where the two f32 runs differ beyond that, a float64 run of the JAX
+loop decides by the card's fp32 gate (see ``X``): JAX's f32 gradient of the
+loop's first batch lies 28% of its largest value from float64 at
+layer3.0.downsample.0, the port's 6e-5, and that gap carries to the end of
+both stages; each epoch's live and EMA validation metrics equal,
+``best_top1`` and ``ema_best_top1`` equal, the same checkpoint tags
+written, and the ``metrics.jsonl`` train loss within 1e-4.  Each loop runs
+once a stage and module (``_RUNS``); the JAX states are recorded at each
+checkpoint write."""
 
 import dataclasses
 import json
 import os
 import shutil
+import sys
 
 import numpy as np
 import pytest
@@ -54,7 +55,6 @@ from ehgr_tpu_torch import configs as pc
 from ehgr_tpu_torch.data import factory as pfactory
 from ehgr_tpu_torch.models.convert import (convert_train_state,
                                            state_dict_from_jax)
-from ehgr_tpu_torch.models.factory import build_model
 from ehgr_tpu_torch.train import loop as ploop
 from ehgr_tpu_torch.train.checkpoints import CheckpointManager
 
@@ -68,15 +68,15 @@ from test_torch_train import (CLS, DEPTH, EMA, HW, LR, LR_STEPS, MEAN, N,
 # test_torch_sd_steps.py: the tiny model's ReLU kinks)
 MTMM_TOL = (3e-2, 3e-2)
 SD_TOL = (3e-2, 1e-1)
-# where the two f32 runs part beyond those limits, a float64 run of the
-# port's loop decides by the rule of chip_smoke.py's fp32 train-step gate
-# (PERF.md §2): over a tree's tensors, the port's errors from float64 (max
-# |diff| over max |float64|) at the median and the 95th percentile within
-# X times JAX's, its worst within WORST_X times JAX's worst, each plus
-# GATE_TOL.  At this geometry the two f32 runs take ReLU kinks on other
-# sides, at leaves that move with the torch thread count: after stage 2
-# JAX's momentum lies up to 24% of a tensor's largest value from float64
-# and the port's up to 19% (one thread)
+# where the two f32 runs part beyond those limits, a float64 run of the JAX
+# loop (``jax_float64_training``) decides by the rule of chip_smoke.py's
+# fp32 train-step gate (PERF.md §2): over a tree's tensors, the port's
+# errors from float64 (max |diff| over max |float64|) at the median and the
+# 95th percentile within X times JAX's, its worst within WORST_X times
+# JAX's worst, each plus GATE_TOL.  At this geometry the two f32 runs take
+# ReLU kinks on other sides, at leaves that move with the torch thread
+# count: after stage 1 JAX's f32 EMA lies up to 30% of a tensor's largest
+# value from float64, the port's up to 43% (one thread)
 X, WORST_X, GATE_TOL = 1.5, 3.0, 1e-3
 STAGE = {"mtmm": ("ego_mtmm", "tsn_mtmm", MTMM_TOL),
          "sd": ("ego_sd", "tsn_sd", SD_TOL)}
@@ -146,13 +146,17 @@ def _tags(run_dir, suffix):
                   for f in os.listdir(run_dir) if f.endswith(suffix))
 
 
-def jax_training(cfg, stage):
+def jax_training(cfg, stage, replay=None):
     """The JAX loop's result (with the tags of its checkpoint writes under
-    ``"tags"``) and the payloads of the states it wrote as ``latest``
-    (stage 1: the first and the last) and, in stage 1, last as ``best``.
-    The writes are recorded, not made: orbax would write a few hundred MB
-    that nothing here reads."""
-    saved = {"latest": [], "best": None, "tags": set()}
+    ``"tags"``) and what it saved: the payloads of the states it wrote as
+    ``latest`` (stage 1: the first and the last) and, in stage 1, last as
+    ``best``, and each validation's result (``"vals"``).  The writes are
+    recorded, not made: orbax would write a few hundred MB that nothing
+    here reads.  With ``replay`` (an earlier run's ``"vals"``) each
+    validation returns the next of those instead of running."""
+    saved = {"latest": [], "best": None, "tags": set(), "vals": []}
+    pending = None if replay is None else iter(replay)
+    real_validate = jloop.validate
 
     class Recording(jloop.CheckpointManager):
         def save(self, tag, state):
@@ -165,8 +169,14 @@ def jax_training(cfg, stage):
                 saved["best"] = payload
             return self._path(tag)
 
+    def validate(*args):
+        out = real_validate(*args) if pending is None else next(pending)
+        saved["vals"].append(out)
+        return out
+
     with pytest.MonkeyPatch.context() as mp, tiny_resnet():
         mp.setattr(jloop, "CheckpointManager", Recording)
+        mp.setattr(jloop, "validate", validate)
         res = jloop.run_training(
             cfg, stage, *jfactory.build_train_datasets(cfg, stage),
             max_steps_per_epoch=2)
@@ -174,20 +184,51 @@ def jax_training(cfg, stage):
     return res, saved
 
 
-def port_training(cfg, stage, float64=False):
+def port_training(cfg, stage):
     """The port's loop on one torch thread (many spin against the other
-    test processes); with ``float64`` the whole run in float64 (model,
-    optimizer, EMA; the plain ACTION formulation), the reference the two
-    f32 runs are held to."""
-    with pytest.MonkeyPatch.context() as mp, tiny_resnet(), one_thread():
-        if float64:
-            cfg = cfg.replace(model=dataclasses.replace(
-                cfg.model, dtype="float64", action_fused="none"))
-            mp.setattr(ploop, "build_model",
-                       lambda *a, **k: build_model(*a, **k).double())
+    test processes)."""
+    with tiny_resnet(), one_thread():
         return ploop.run_training(
             cfg, stage, *pfactory.build_train_datasets(cfg, stage),
             max_steps_per_epoch=2, device="cpu")
+
+
+class _Float64Names:
+    """``jax.numpy`` with ``float32`` read as ``float64``.  In place of
+    ``jnp`` in the JAX package's modules it turns every cast and
+    accumulator that names float32 (the BN statistics, the ACTION products,
+    the heads' outputs, the input normalization, the schedule's scalars)
+    into float64."""
+    float32 = jnp.float64
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
+def jax_float64_training(cfg, stage, replay):
+    """``jax_training`` in float64, the reference the two f32 runs are held
+    to: x64 on, the model at float64 in the plain ACTION formulation, every
+    ``jnp.float32`` of the JAX package read as float64 and the variables
+    cast to float64 before the train state is made.  It replays the f32
+    JAX run's validations (``replay``), so its ``best`` is the epoch that
+    run and the port chose (their validations are held equal below).
+    Called after the stage's f32 run, which has imported every module the
+    loop reaches."""
+    cfg = cfg.replace(model=dataclasses.replace(
+        cfg.model, dtype="float64", action_fused="none"))
+
+    def cast(a):
+        return (a.astype(jnp.float64) if jnp.issubdtype(a.dtype, jnp.floating)
+                else a)
+
+    with jax.enable_x64(True), pytest.MonkeyPatch.context() as mp:
+        for name, mod in list(sys.modules.items()):
+            if name.startswith("ehgr_tpu.") and getattr(mod, "jnp",
+                                                        None) is jnp:
+                mp.setattr(mod, "jnp", _Float64Names())
+        mp.setattr(jloop, "create_train_state",
+                   lambda v, tx: j_create_state(jax.tree.map(cast, v), tx))
+        return jax_training(cfg, stage, replay)
 
 
 def _load(path):
@@ -250,26 +291,25 @@ def runs(root):
 
 
 def float64_result(r, stage):
-    """(final payload, start) of the port's loop in float64 over the
-    stage, from the init (MTMM) or from its own MTMM ``best`` with the
-    common exits (SD); run once a stage and module."""
+    """(final payload, start) of the JAX loop in float64 over the stage,
+    from the init (MTMM) or from its own MTMM ``best`` with the common exits
+    (SD); run once a stage and module.  The payloads are f32
+    (``convert_train_state``): a rounding of 6e-8 of each value."""
     if "f64" not in r:
-        cfg, root = r["pcfg"], r["root"]
-        start = cfg.run.checkpoint_path
+        root = r["root"]
+        start = str(root / "init.pth")
         if stage == "sd":
             mtmm = _RUNS["mtmm"]
             float64_result(mtmm, "mtmm")
             start = sd_start(mtmm["f64_best"],
                              _load(root / "sd_init.pth")["state_dict"],
                              root / "f64_sd_start.pth")
-        cfg = cfg.replace(run=dataclasses.replace(
-            cfg.run, checkpoint_path=start, run_dir=str(root / "f64")))
-        res = port_training(cfg, stage, float64=True)
-        load = lambda tag: _load(  # noqa: E731
-            os.path.join(res["run_dir"], f"port_{tag}_ckpt.pth"))
+        cfg, _ = configs(stage, str(root / "f64"), start)
+        _, saves = jax_float64_training(cfg, stage,
+                                        r["jax_saves"]["vals"])
         if stage == "mtmm":
-            r["f64_best"] = load("best")["state_dict"]
-        r["f64"] = (load("latest"), _load(start)["state_dict"])
+            r["f64_best"] = saves["best"]["state_dict"]
+        r["f64"] = (saves["latest"][-1], _load(start)["state_dict"])
         shutil.rmtree(root / "f64")
     return r["f64"]
 
@@ -291,8 +331,9 @@ def _leaf_excess(tree, key, a, b, tol):
 def check_state(port, jax_, tol, float64=None):
     """Every tensor of the port's final state within the stage's limits of
     JAX's; each argument a (payload, start state_dict) pair.  In a tree
-    where a tensor is not, ``float64()`` (the port's loop in float64, the
-    same pair) decides by the gate above.  The step counters equal."""
+    where a tensor is not, ``float64()`` (the JAX loop in float64, the same
+    pair) decides by the gate above; its readings are printed (``-s``).
+    The step counters equal."""
     assert port[0]["step"] == jax_[0]["step"]
     ref = None
     for tree in TREES:
@@ -310,6 +351,8 @@ def check_state(port, jax_, tol, float64=None):
         for q, x in ((50, X), (95, X), (100, WORST_X)):
             mine, theirs = (np.percentile(errs[w], q) for w in ("port",
                                                                 "jax"))
+            print(f"{tree} q{q}: port {mine:.4g}, jax {theirs:.4g}, "
+                  f"limit {x * theirs + GATE_TOL:.4g}")
             assert mine <= x * theirs + GATE_TOL, (tree, q, mine, theirs,
                                                    apart)
 

@@ -362,22 +362,13 @@ class TestHostPieces:
         for k, w in want.items():
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(w))
 
-    def test_meters_match_jax(self, tmp_path):
+    def test_meters_match_jax(self):
         vals = [(0.5, 4), (1.25, 2), (3.0, 1), (-2.0, 3)]
         meters = [pmeters.AverageMeter(), jmeters.AverageMeter()]
         for v, n in vals:
             for m in meters:
                 m.update(v, n)
             assert vars(meters[0]) == vars(meters[1])
-        for mod in (pmeters, jmeters):
-            log = mod.CsvLogger(str(tmp_path / f"{mod.__name__}.csv"),
-                                ["epoch", "loss"])
-            log.log({"epoch": 1, "loss": 0.5})
-            log.log({"loss": 2})
-            log.close()
-        texts = [open(tmp_path / f"{mod.__name__}.csv", newline="").read()
-                 for mod in (pmeters, jmeters)]
-        assert texts[0] == texts[1] == "epoch,loss\r\n1,0.5\r\n,2\r\n"
         timer = pmeters.StepTimer()
         timer.data_ready()
         timer.step_done()
