@@ -10,17 +10,20 @@ Phases; any miss raises and the run exits nonzero:
    batch's 20 clips and at the train steps' 8 (the window kernel picks its
    frame group TG from the clip count), the 224^2 and the 256^2 (NvGesture
    test crop) sites at the test runner's 10, plus two ragged shapes, three
-   more routes of ``action_apply`` and two shapes at T=5 whose last frame
-   group has masked frames (each kernel's route, and the window kernel's
-   TG and N, printed per shape), in fp32 (TF32 off) and in bf16 (plain
-   version in f32 from the same bf16 inputs), ``action_stats`` also
-   bitwise equal over two calls; and measure how far the TPU kernel's bf16
-   running sum of ``pool`` would land from the f32 sum kept here;
+   more routes of ``action_apply``, two shapes at T=5 whose last frame
+   group has masked frames and the sites of stages 3-4 at T=4 (as
+   ``temporal_pool`` runs them) at 20 and 8 clips (each kernel's route,
+   and the window kernel's TG and N, printed per shape), in fp32 (TF32
+   off) and in bf16 (plain version in f32 from the same bf16 inputs),
+   ``action_stats`` also bitwise equal over two calls; and measure how far
+   the TPU kernel's bf16 running sum of ``pool`` would land from the f32
+   sum kept here;
 3. hold ``learnable_shift_fwd`` / ``learnable_shift_bwd`` (y, dx, dw)
    against autograd of the plain shift at the site shapes at 8 and at 20
-   clips, the two ragged shapes and two shapes at T=5, fp32 and bf16, the
-   backward's route (``strip``, ``csrc/shift_bwd.cu``, or ``sweep``)
-   printed per shape and its dx and dw bitwise equal over two calls;
+   clips, the two ragged shapes, two shapes at T=5 and the stage 3-4 sites
+   at T=4, fp32 and bf16, the backward's route (``strip``,
+   ``csrc/shift_bwd.cu``, or ``sweep``) printed per shape and its dx and
+   dw bitwise equal over two calls;
 4. hold ``tsm_shift`` forward and reverse bitwise equal to the plain shift
    at the site shapes at 8 clips and two ragged shapes, fp32 and bf16; and
    ``action_prologue`` (x_shift, mc, pool, x3) against its plain version
@@ -78,11 +81,25 @@ Phases; any miss raises and the run exits nonzero:
    validation none; clips/s of each epoch's train part, data and batch
    time, validation seconds, each checkpoint write's seconds and bytes and
    the restore's seconds; then one MTMM step without and with ``remat``:
-   losses, gradients, BN statistics, peak memory and launches.  Then
+   losses, gradients, BN statistics, peak memory and launches;
+12. the joint stage and the TSN options: a few
+   ``make_train_step(stage='mtmm_sd')`` steps on the full-width
+   ``tsn_mtmm_sd`` (``modal='rgb_depth'``, 'vjp': 16 launches of each of
+   the four kernels a step; the local decoder's 224^2 map and the global
+   decoder's 56^2 one, which the loss reads; the first step's peak memory)
+   and one fp32 step of both models against a float64 run; with
+   ``temporal_pool`` (the 9 ACTION sites of stages 3-4 on T/2 = 4 frames)
+   a few ``tsn`` steps (stage ``baseline``) and a 'mega' forward (16
+   launches of each kernel) with its logits against the plain model, and
+   both with ``before_softmax=False``; then ``cli.train_mtmm_sd`` for 2
+   epochs of 8 steps warm-started from the MTMM ``best`` (the decoder keys
+   it takes, skips and keeps from init as the code predicts them) and
+   ``run_test`` as ``cli.test_sd`` configures it ('prologue') on the joint
+   ``best``.  Then
    every (TG, N) of the window kernel that a main path launched (its sizes
    recorded at each launch) must be among those that phases 2 and 4 held
    against the plain version;
-12. time each kernel, its plain version and a yardstick (the bare GEMM of
+13. time each kernel, its plain version and a yardstick (the bare GEMM of
    the same ``[rows, C] x [C, F]`` (or ``x @ W_p3``) product for the ACTION
    kernels, the grouped ``conv3d`` and its backward for the learnable
    shift; none for the TSM shift) at each site shape with CUDA events,
@@ -149,6 +166,9 @@ ROUTE_SHAPES = [(201, 128, 512), (15, 64, 64), (50, 72, 40)]
 # take TG = 4 at Cr = 4 (frames 5-7 of the second group masked), 260 take
 # TG = 2 at Cr = 32 (frame 5 of the third); the checks assert T % TG != 0
 T_SHAPES = [(5, 3136, 64, 64), (5, 784, 512, 128)]
+# (S, C, F, sites per forward) of the ACTION sites of stages 3-4, which run
+# on T/2 frames under temporal_pool (layer3's 6 and layer4's 3 sites)
+TPOOL_SITES = SITES[4:]
 # bytes written before each device-only timed call of a shift kernel: over
 # the card's 50 MB L2, so the call reads its inputs from device memory, as
 # the train step finds them, and ~0.3 ms of writing, so the host has
@@ -195,6 +215,10 @@ BF16_SLACK = 1.5
 # readings (3 runs, 2 modes, 4 heads; H100, PERF.md) the ratio to the plain
 # model's bf16 error ranged 0.81-1.40, the final head the widest
 HEADS_BF16_SLACK = 2.0
+# bf16 probabilities of a before_softmax=False model: each frame's softmax
+# rounded to bf16 (2^-9 relative a class), then averaged; how far a row's
+# sum may sit from 1
+BF16_SUM_TOL = 1e-2
 # launches of one ACTION forward ('mega', or 'vjp' in a train step) and of
 # one SD forward in 'prologue': every launch on the main path's route
 MEGA_FORWARD = {"action_stats": 16, "action_stats_window": 16,
@@ -212,6 +236,27 @@ LOOP_STEPS = LOOP_VIDEOS // TRAIN_CLIPS
 # |diff| over max |plain| (the recompute runs the same kernels on the same
 # inputs; measured bitwise equal on the H100, PERF.md)
 REMAT_GRAD_TOL = 1e-5
+# the joint model's transposed convs whose output feeds a BN ('rgb_depth'):
+# with that BN on batch statistics the bias's exact gradient is zero (the
+# BN takes the channel's mean away), so the parity gate holds each within
+# ZERO_GRAD_REL of its weight's largest gradient instead of against a
+# float64 run's rounding noise: the fp32 sum that cancels leaves ~2^-24
+# sqrt(M) / |x| of it over M = 12,544 outputs a channel, while a bias that
+# moved the loss would sit near its weight's scale
+BN_FED_BIASES = ("local_decoder.0.bias", "global_decoder.0.bias",
+                 "global_decoder.2.bias")
+ZERO_GRAD_REL = 1e-3
+# the keys a Stage-1 file gives the joint model: the MTMM decoder's first
+# BN (global_decoder.1.*, 256 channels) has the key and shape of the joint
+# decoder's first BN; its other keys are absent or of another shape
+JOINT_TAKEN = tuple(f"global_decoder.1.{leaf}" for leaf in
+                    ("weight", "bias", "running_mean", "running_var"))
+JOINT_SKIPPED = tuple(
+    ["global_decoder.0.weight", "global_decoder.4.weight",
+     "global_decoder.8.weight", "global_decoder.12.weight",
+     "global_decoder.15.weight", "global_decoder.15.bias"] +
+    [f"global_decoder.{i}.{leaf}" for i in (5, 9, 13) for leaf in
+     ("weight", "bias", "running_mean", "running_var")])
 
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
@@ -297,21 +342,24 @@ def _check_shapes(n):
     served batch's ``n`` clips and at TRAIN_CLIPS (the train steps' batch:
     the window kernel picks its TG from the clip count), every 224^2 and
     256^2 site at the test runner's RUN_CLIPS, the ragged and route shapes
-    and T_SHAPES at ``n``."""
+    and T_SHAPES at ``n``, and the sites of stages 3-4 at T/2 (the
+    ``temporal_pool`` model's) at both ``n`` and TRAIN_CLIPS."""
     return ([(k, T) + s[:3] for k in (n, TRAIN_CLIPS) for s in SITES] +
             [(RUN_CLIPS, T) + s[:3] for s in SITES + NV_SITES] +
             [(n, T) + s[:3] for s in RAGGED + ROUTE_SHAPES] +
-            [(n,) + s for s in T_SHAPES])
+            [(n,) + s for s in T_SHAPES] +
+            [(k, T // 2) + s[:3] for k in (n, TRAIN_CLIPS)
+             for s in TPOOL_SITES])
 
 
 def _window_template(mega, route, k, t, s, c):
     """The window kernel's TG and N at these sizes (as its host code picks
-    them; nothing off that route); a shape off T = 8 must leave masked
+    them; nothing off that route); a shape of T_SHAPES must leave masked
     frames in the last frame group (T % TG != 0)."""
     if route != "window":
         return {}
     g = mega.window_grid(k, t, s, c, c // 16)
-    if t != T and t % g["TG"] == 0:
+    if any(sh[:3] == (t, s, c) for sh in T_SHAPES) and t % g["TG"] == 0:
         raise AssertionError(f"T={t} S={s} C={c}: TG={g['TG']} divides T, "
                              "so no frame of the last group is masked")
     return dict(TG=g["TG"], N=g["N"])
@@ -377,11 +425,11 @@ def check_kernels(torch, mega, n, gen):
     return results, pool_acc
 
 
-def _shift_shapes():
-    """Distinct (S, C) of the 16 ACTION sites (the shift does not see F),
-    with their site counts."""
+def _shift_shapes(sites=SITES):
+    """Distinct (S, C) of ``sites`` (default the 16 ACTION sites; the
+    shift does not see F), with their site counts."""
     shapes = {}
-    for s, c, _, count in SITES:
+    for s, c, _, count in sites:
         shapes[(s, c)] = shapes.get((s, c), 0) + count
     return [(s, c, k) for (s, c), k in shapes.items()]
 
@@ -396,12 +444,15 @@ def _shift_check_shapes(n):
     """(clips, T, S, C) of the learnable-shift checks: the site shapes at
     TRAIN_CLIPS (the train steps') and at the served batch's ``n`` clips
     (the strip kernel picks its strip height R from the clip count), the
-    ragged shapes at TRAIN_CLIPS, and the (T, S, C) of T_SHAPES at both
-    clip counts (strips through five frames)."""
+    ragged shapes at TRAIN_CLIPS, and the (T, S, C) of T_SHAPES (strips
+    through five frames) and the stage 3-4 sites at T/2 (strips through
+    four, as ``temporal_pool`` runs them) at both clip counts."""
     return ([(k, T, s, c) for k in (TRAIN_CLIPS, n)
              for s, c, _ in _shift_shapes()] +
             [(TRAIN_CLIPS, T, s, c) for s, c, _ in RAGGED] +
-            [(k,) + sh[:3] for k in (TRAIN_CLIPS, n) for sh in T_SHAPES])
+            [(k,) + sh[:3] for k in (TRAIN_CLIPS, n) for sh in T_SHAPES] +
+            [(k, T // 2, s, c) for k in (TRAIN_CLIPS, n)
+             for s, c, _ in _shift_shapes(TPOOL_SITES)])
 
 
 def check_shift(torch, shk, n, gen):
@@ -739,10 +790,12 @@ def _train_model(torch, seed, mode, dtype, dropout, arch="tsn_mtmm",
 
 def run_steps(torch, name, model, stage, seed, want):
     """``make_train_step(stage=...)`` on ``model`` with the recipe's
-    optimizer settings: one warm-up step, then TRAIN_STEPS steps with the
-    launch counters zeroed just before and read after each step; each step
-    must launch exactly ``want`` (kernel -> count, the others 0).  Returns
-    the result and the warm (step, state, batch, generator)."""
+    optimizer settings: one warm-up step (its peak memory above what the
+    fresh state holds, as ``remat_step`` reads it), then TRAIN_STEPS steps
+    with the launch counters zeroed just before and read after each step;
+    each step must launch exactly ``want`` (kernel -> count, the others
+    0).  Returns the result and the warm (step, state, batch,
+    generator)."""
     from ehgr_tpu_torch.configs import LossConfig, OptimConfig
     from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
                                                       IMAGENET_STD)
@@ -762,8 +815,12 @@ def run_steps(torch, name, model, stage, seed, want):
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p0 = {k: v.detach().clone() for k, v in state.params.items()}
     e0 = {k: v.clone() for k, v in state.ema_params.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     step(state, batches[0], gen)                 # warm-up: cuDNN plans
     torch.cuda.synchronize()
+    first_peak = torch.cuda.max_memory_allocated() - base
 
     counters = _counters()
     want = {k: want.get(k, 0) for k in counters}
@@ -798,7 +855,8 @@ def run_steps(torch, name, model, stage, seed, want):
                ms_per_step=ms, mean_ms_per_step=mean_ms,
                clips_per_s=TRAIN_CLIPS / mean_ms * 1e3,
                losses=[m["loss"] for m in metrics], metrics=metrics,
-               params_moved=moved, ema_moved=ema_moved, n_params=len(p0))
+               params_moved=moved, ema_moved=ema_moved, n_params=len(p0),
+               first_step_peak_bytes=first_peak)
     print(f"{name} " + json.dumps(out), flush=True)
     return out, (step, state, batches[1], gen)
 
@@ -893,7 +951,8 @@ def _parity_grads(torch, seed, mode, dtype, batch, state, arch="tsn_mtmm",
     total, _, _ = loss_fn(batch, None)
     total.backward()
     return total.item(), {k: p.grad.double()
-                          for k, p in model.named_parameters()}
+                          for k, p in model.named_parameters()
+                          if p.grad is not None}
 
 
 def _grad_stats(errs):
@@ -917,7 +976,11 @@ def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
     leaves, and to WORST_X times it on the worst leaf, each plus GRAD_TOL.
     Two settings: ``bn_batch``, every BN on batch statistics as the train
     phase runs; ``bn_running``, every BN on running statistics set from the
-    batch.  ``leaves``: the result also holds every leaf's error."""
+    batch.  ``leaves``: the result also holds every leaf's error.  A
+    parameter outside the loss (the joint model's local decoder) has no
+    gradient and no error; in ``bn_batch`` each bias of BN_FED_BIASES
+    (exact gradient zero) is held instead within ZERO_GRAD_REL of its
+    weight's largest gradient, in both fp32 runs."""
     batch = {k: torch.as_tensor(v).cuda()
              for k, v in make_train_batches(seed, 1)[0].items()}
     out = {}
@@ -929,10 +992,16 @@ def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
         runs = {name: _parity_grads(torch, seed, mode, torch.float32, batch,
                                     state, arch, stage)
                 for name, mode in (("vjp", "vjp"), ("plain", None))}
-        errs = {name: {k: _rel_err(g[k], ref[k])[1] for k in ref}
+        zero = [k for k in BN_FED_BIASES
+                if setting == "bn_batch" and k in ref]
+        zero_rel = {name: {k: g[k].abs().max().item() / g[
+            k[:-len("bias")] + "weight"].abs().max().item() for k in zero}
+            for name, (_, g) in runs.items()}
+        errs = {name: {k: _rel_err(g[k], ref[k])[1] for k in ref
+                       if k not in zero}
                 for name, (_, g) in runs.items()}
         direct = {k: _rel_err(g, runs["plain"][1][k])[1]
-                  for k, g in runs["vjp"][1].items()}
+                  for k, g in runs["vjp"][1].items() if k not in zero}
         stat = {name: _grad_stats(e) for name, e in errs.items()}
         tol = {q: x * stat["plain"][q] + GRAD_TOL
                for q, x in (("median", GRAD_X), ("p95", GRAD_X),
@@ -945,10 +1014,16 @@ def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
             n_grads=len(ref), vjp_vs_float64=stat["vjp"],
             plain_vs_float64=stat["plain"], tol=tol,
             vjp_vs_plain=_grad_stats(direct))
+        if zero:
+            r.update(zero_grad_rel=zero_rel, zero_grad_tol=ZERO_GRAD_REL)
         print(f"train_parity {stage} {setting} " + json.dumps(r),
               flush=True)
         if leaves:
             r["leaves"] = errs
+        if any(v > ZERO_GRAD_REL for z in zero_rel.values()
+               for v in z.values()):
+            raise AssertionError(f"{setting}: gradient of a BN-fed bias "
+                                 f"{zero_rel}")
         if not loss_rel <= LOSS_TOL:
             raise AssertionError(f"{setting}: fp32 train loss vjp "
                                  f"{runs['vjp'][0]} vs plain "
@@ -1313,11 +1388,12 @@ def test_config(preset, checkpoint, mode, seed):
                                 seed=seed))
 
 
-def _scorer_probs(torch, cfg, arch, heads, frames):
+def _scorer_probs(torch, cfg, arch, heads, frames, skipped_ok=()):
     """Each head's probabilities of one loader batch through the runner's
     model and scorer (``_build_model``, ``make_test_scorer``): the model in
     ``cfg``'s ACTION mode and the plain one (mode 'none'), each in bf16 and
-    in fp32 (TF32 off); keyed (mode, dtype)."""
+    in fp32 (TF32 off); keyed (mode, dtype).  Every key of the checkpoint
+    must load, but those under the prefixes ``skipped_ok``."""
     import dataclasses
 
     from ehgr_tpu_torch.eval import runner
@@ -1327,7 +1403,7 @@ def _scorer_probs(torch, cfg, arch, heads, frames):
         c = cfg.replace(model=dataclasses.replace(cfg.model,
                                                   action_fused=mode))
         model, skipped = runner._build_model(c, arch, "cuda")
-        if skipped:
+        if [k for k in skipped if not k.startswith(skipped_ok)]:
             raise AssertionError(f"{arch}: checkpoint keys not loaded: "
                                  f"{skipped}")
         for dname in ("bfloat16", "float32"):
@@ -1339,7 +1415,8 @@ def _scorer_probs(torch, cfg, arch, heads, frames):
     return out
 
 
-def run_protocol(torch, name, cfg, arch, heads, want, slack):
+def run_protocol(torch, name, cfg, arch, heads, want, slack,
+                 skipped_ok=()):
     """A main path: ``run_test(cfg, arch, heads)`` on the card (host
     loader, upload, scorer, votes, metrics), with the kernels'
     launch counters zeroed just before and read just after; each forward
@@ -1349,7 +1426,8 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack):
     idle share), and the first batch's probabilities of
     every head against the plain model's: fp32 within LOGIT_TOL, bf16
     within ``slack`` times the plain model's own bf16 error from fp32,
-    plus LOGIT_TOL (the rule of compare_logits)."""
+    plus LOGIT_TOL (the rule of compare_logits).  ``skipped_ok``: key
+    prefixes of the checkpoint the model has no place for."""
     from ehgr_tpu_torch.data.factory import build_test_dataset
     from ehgr_tpu_torch.data.pipeline import Loader
     from ehgr_tpu_torch.eval import runner
@@ -1392,7 +1470,8 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack):
     prof = _device_profile(torch, lambda: score(batches[0]["rgb"]))
     del model, score
 
-    probs = _scorer_probs(torch, cfg, arch, heads, batches[0]["rgb"])
+    probs = _scorer_probs(torch, cfg, arch, heads, batches[0]["rgb"],
+                          skipped_ok)
     mode = cfg.model.action_fused
     ref = probs["none", "float32"]
     gate = []
@@ -1518,6 +1597,7 @@ class LoopWatch:
                                    weights_only=True)["state_dict"]
             self.transfer = dict(
                 skipped=sorted(skipped),
+                taken=sorted(set(keys) - set(skipped)),
                 kept_from_init=sorted(set(model.state_dict()) - set(keys)))
             return skipped
 
@@ -1641,7 +1721,7 @@ def loop_sd(torch, tmp, mtmm):
                 for k in t["kept_from_init"]) or \
             not {f"mid{i}_top1" for i in (1, 2, 3)} <= set(res):
         raise AssertionError(f"loop_sd: transfer {t}, result {sorted(res)}")
-    out["transfer"] = dict(skipped=len(t["skipped"]),
+    out["transfer"] = dict(skipped=len(t["skipped"]), taken=len(t["taken"]),
                            kept_from_init=len(t["kept_from_init"]))
     print("loop_sd_transfer " + json.dumps(out["transfer"]), flush=True)
     return out, res
@@ -1790,6 +1870,173 @@ def remat_step(torch, seed):
             not rem["step_peak_bytes"] < plain["step_peak_bytes"]:
         raise AssertionError(f"remat vs plain step: {out}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the tenth slice: the joint MTMM+SD stage and the TSN options
+# ---------------------------------------------------------------------------
+
+def joint_train(torch, seed):
+    """The joint stage's train step: ``make_train_step(stage='mtmm_sd')``
+    on the full-width ``tsn_mtmm_sd`` (``modal='rgb_depth'``, bf16,
+    ``'vjp'``, dropout 0.5): 16 launches of each of the four kernels a step
+    (``run_steps``); the local decoder's map ``[N*T, 224, 224, 1]`` and the
+    global one's ``[N*T, 56, 56, 1]`` (the one the loss reads, against
+    the current depth); the first step's peak memory."""
+    model = _train_model(torch, seed, "vjp", torch.bfloat16, 0.5,
+                         "tsn_mtmm_sd")
+    shapes = {}
+    for name in ("local_decoder", "global_decoder"):
+        getattr(model, name).register_forward_hook(
+            lambda mod, i, o, name=name: shapes.__setitem__(
+                name, list(o.permute(0, 2, 3, 1).shape)))
+    out, _ = run_steps(torch, "joint_train", model, "mtmm_sd", seed,
+                       {**SHIFT_STEP, **MEGA_FORWARD})
+    out["map_shapes"] = shapes
+    print("joint_train_maps " + json.dumps(dict(
+        shapes, first_step_peak_bytes=out["first_step_peak_bytes"])),
+        flush=True)
+    nt = TRAIN_CLIPS * T
+    if shapes != {"local_decoder": [nt, CROP, CROP, 1],
+                  "global_decoder": [nt, DEPTH_SIZE, DEPTH_SIZE, 1]}:
+        raise AssertionError(f"joint_train: decoder maps {shapes}")
+    return out
+
+
+def tpool(torch, seed, batches):
+    """``temporal_pool``: T halved after stage 2, the ACTION sites of
+    stages 3-4 on T/2 = 4 frames.  ``tsn`` steps of stage ``baseline``
+    (``run_steps``, 16 launches of each kernel a step: the one stage that
+    trains with the pool, in both packages, since the MTMM depth map and
+    the SD exits 1-2 then hold T/2 frames a clip against targets of T); a
+    ``tsn`` 'mega' forward of the first
+    request batch (16 ``action_stats`` / ``action_apply`` launches, those
+    of stages 3-4 at T = 4) and its logits against the plain model's
+    (``compare_logits``, BN statistics from that batch as for the served
+    model); then both with ``before_softmax=False``: the frames'
+    probabilities averaged, 'mega' within LOGIT_TOL of plain in fp32 and
+    summing to 1 in bf16."""
+    from ehgr_tpu_torch.models.tsn import variant
+    from ehgr_tpu_torch.ops.action import ActionConv
+
+    model = variant("tsn", num_class=CLASSES, num_segments=T,
+                    temporal="action", action_fused="vjp", partial_bn=False,
+                    dropout=0.5, temporal_pool=True, dtype=torch.bfloat16,
+                    device="cuda",
+                    generator=torch.Generator().manual_seed(seed))
+    segs = [m.n_segment for m in model.modules()
+            if isinstance(m, ActionConv)]
+    trained, _ = run_steps(torch, "tpool_train", model, "baseline", seed,
+                           {**SHIFT_STEP, **MEGA_FORWARD})
+    del model
+    models = [variant("tsn", num_class=CLASSES, num_segments=T,
+                      temporal="action", action_fused=mode,
+                      temporal_pool=True, dtype=torch.float32, device="cuda",
+                      generator=torch.Generator().manual_seed(seed))
+              for mode in ("mega", None)]
+    mega_model, plain = models
+    x = _clips(torch, batches[0][0])
+    set_bn_stats(torch, plain, x)
+    mega_model.load_state_dict(plain.state_dict())
+    mega_model.dtype = torch.bfloat16
+    with torch.inference_mode():
+        mega_model(x)                              # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        mega_model(x)
+        torch.cuda.synchronize()
+        launches = _launches()
+    at_t4 = sorted({w[3:5] for w in WINDOW_LAUNCHES["now"] if w[2] == T // 2})
+    logits = compare_logits(torch, mega_model, plain, batches[0][0])
+    with torch.inference_mode():
+        for m in models:
+            m.before_softmax = False
+            m.dtype = torch.float32
+        err, rel = _rel_err(mega_model(x), plain(x))
+        mega_model.dtype = torch.bfloat16
+        probs = mega_model(x).float()
+    sums = (probs.sum(-1) - 1).abs().max().item()
+    out = dict(segments={f"T={t}": segs.count(t) for t in sorted(set(segs))},
+               train=trained, forward_launches=launches,
+               window_sizes_at_t4=[list(w) for w in at_t4], logits=logits,
+               before_softmax_false=dict(
+                   fp32_max_abs_err=err, fp32_rel=rel, tol=LOGIT_TOL,
+                   bf16_sum_err=sums, bf16_sum_tol=BF16_SUM_TOL))
+    print("tpool " + json.dumps({k: v for k, v in out.items()
+                                 if k not in ("train", "logits")}),
+          flush=True)
+    if segs.count(T) != 7 or segs.count(T // 2) != 9:
+        raise AssertionError(f"tpool: ACTION sites at T {segs}")
+    if launches != {**{k: 0 for k in launches}, **MEGA_FORWARD}:
+        raise AssertionError(f"tpool: a 'mega' forward launched {launches}")
+    if sorted(sc for sc in at_t4) != sorted(
+            {(s, c) for s, c, _, _ in TPOOL_SITES}):
+        raise AssertionError(f"tpool: window launches at T/2 {at_t4}")
+    if not rel <= LOGIT_TOL or not sums <= BF16_SUM_TOL or \
+            probs.shape != (x.shape[0], CLASSES):
+        raise AssertionError(f"tpool, before_softmax=False: {out}")
+    return out
+
+
+def loop_mtmm_sd(torch, tmp, mtmm):
+    """A main path: ``cli.train_mtmm_sd`` (``ego_mtmm_sd``: ``tsn_mtmm_sd``
+    at full width, ``modal='rgb_depth'``, bf16, 'vjp', dropout 0.5) for
+    LOOP_EPOCHS epochs of LOOP_STEPS steps, warm-started from the MTMM
+    ``best`` through ``--checkpoint_path``: the keys taken from the
+    decoder exactly JOINT_TAKEN, those skipped exactly JOINT_SKIPPED, the
+    keys kept from init exactly the exits', the local decoder's and the
+    joint decoder's others; each step launches the four kernels 16 times,
+    validation none; the three checkpoint files."""
+    from ehgr_tpu_torch.cli import train_mtmm_sd
+
+    with LoopWatch(torch) as w:
+        reset_counters()
+        t0 = time.perf_counter()
+        res = train_mtmm_sd.main(loop_argv(
+            tmp, "ego_mtmm_sd", "joint", "--epochs", str(LOOP_EPOCHS),
+            "--checkpoint_path", _ckpt(mtmm, "mtmm", "best")))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    out = w.summary("loop_mtmm_sd", {**SHIFT_STEP, **MEGA_FORWARD},
+                    LOOP_EPOCHS * LOOP_STEPS, res, wall, launches)
+    t = w.transfer
+    files = sorted(f for f in os.listdir(res["run_dir"]) if f.endswith(".pth"))
+    kept_ok = ("scala", "middle_fc", "local_decoder.", "global_decoder.0.",
+               "global_decoder.2.", "global_decoder.3.", "global_decoder.4.")
+    taken = [k for k in (t or {}).get("taken", ())
+             if k.startswith("global_decoder.")]
+    if t is None or sorted(t["skipped"]) != sorted(JOINT_SKIPPED) or any(
+            not k.startswith(kept_ok) for k in t["kept_from_init"]) or \
+            taken != sorted(JOINT_TAKEN) or files != [
+            "joint_best_ckpt.pth", "joint_ema_best_ckpt.pth",
+            "joint_latest_ckpt.pth"] or not {
+                f"mid{i}_top1" for i in (1, 2, 3)} <= set(res):
+        raise AssertionError(f"loop_mtmm_sd: transfer {t}, files {files}, "
+                             f"result {sorted(res)}")
+    out["transfer"] = dict(skipped=len(t["skipped"]), taken=len(t["taken"]),
+                           kept_from_init=len(t["kept_from_init"]),
+                           taken_from_decoder=taken)
+    print("loop_mtmm_sd_transfer " + json.dumps(out["transfer"]), flush=True)
+    return out, res
+
+
+def loop_test_mtmm_sd(torch, tmp, joint):
+    """A main path: ``run_test`` on the joint stage's ``best`` with the
+    config ``cli.test_sd`` makes of its flags (``tsn_sd``, four heads,
+    ``--action_fused prologue``), 32 synthetic videos x 10 clips: every key
+    but the two decoders' loaded, 16 ``action_prologue_window`` launches a
+    forward, the first batch's probabilities against the plain model
+    (``run_protocol``, the gates of ``loop_test_sd``)."""
+    from ehgr_tpu_torch.configs import config_from_args
+
+    cfg = config_from_args(
+        ["--preset", "ego_sd", "--synthetic", "--synthetic_videos", "32",
+         "--checkpoint_path", _ckpt(joint, "joint", "best"),
+         "--action_fused", "prologue"], default_preset="ego_sd")
+    return run_protocol(torch, "loop_test_mtmm_sd", cfg, "tsn_sd", 4,
+                        PROLOGUE_FORWARD, HEADS_BF16_SLACK,
+                        ("local_decoder.", "global_decoder."))
 
 
 def _device_profile(torch, fn):
@@ -2421,6 +2668,19 @@ def main(argv=None) -> int:
     l_resume = phase("loop_resume", loop_resume, torch, tmp, mtmm_res)
     l_test_sd = phase("loop_test_sd", loop_test_sd, torch, tmp, sd_res)
     remat = phase("remat", remat_step, torch, args.seed)
+
+    # the joint stage and the TSN options: the joint train step, its fp32
+    # gate, temporal_pool (train and serve, sites of stages 3-4 at T/2),
+    # then the joint trainer from the MTMM best and the 4-head test on its
+    # best, through the entry points and files
+    joint = phase("joint_train", joint_train, torch, args.seed)
+    joint_parity = phase("joint_parity", train_parity, torch, args.seed,
+                         "tsn_mtmm_sd", "mtmm_sd")
+    tp = phase("tpool", tpool, torch, args.seed, batches)
+    l_joint, joint_res = phase("loop_mtmm_sd", loop_mtmm_sd, torch, tmp,
+                               mtmm_res)
+    l_test_joint = phase("loop_test_mtmm_sd", loop_test_mtmm_sd, torch, tmp,
+                         joint_res)
     tmpdir.cleanup()
     coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
@@ -2440,7 +2700,10 @@ def main(argv=None) -> int:
                 for k, v in deploy["middles"].items()},
              "test_ego": ego, "test_nv_sd": nv_sd, "loop_mtmm": l_mtmm,
              "loop_sd": l_sd, "loop_resume": l_resume,
-             "loop_test_sd": l_test_sd}
+             "loop_test_sd": l_test_sd, "joint_train": joint,
+             "tpool_train": tp["train"],
+             "tpool_serve": dict(launches=tp["forward_launches"]),
+             "loop_mtmm_sd": l_joint, "loop_test_mtmm_sd": l_test_joint}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -2454,7 +2717,11 @@ def main(argv=None) -> int:
                       "test_ego": ego, "test_nv_sd": nv_sd,
                       "loop_mtmm": l_mtmm, "loop_sd": l_sd,
                       "loop_resume": l_resume, "loop_test_sd": l_test_sd,
-                      "remat": remat, "window_coverage": coverage,
+                      "remat": remat, "joint_train": joint,
+                      "joint_parity": joint_parity, "tpool": tp,
+                      "loop_mtmm_sd": l_joint,
+                      "loop_test_mtmm_sd": l_test_joint,
+                      "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

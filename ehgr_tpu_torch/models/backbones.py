@@ -13,14 +13,14 @@ def get_backbone(base_model: str, temporal: str, n_segment: int,
                  shift_div: int, action_fused=None,
                  action_stages=(1, 2, 3, 4), partial_bn: bool = True,
                  stages: int = 4, remat: bool = False,
-                 device=None) -> ResNetBackbone:
+                 temporal_pool: bool = False, device=None) -> ResNetBackbone:
     if base_model in STAGE_SIZES:
         return ResNetBackbone(
             stage_sizes=STAGE_SIZES[base_model], temporal=temporal,
             n_segment=n_segment, shift_div=shift_div,
             action_fused=action_fused, action_stages=tuple(action_stages),
             partial_bn=partial_bn, stages=stages, remat=remat,
-            device=device)
+            temporal_pool=temporal_pool, device=device)
     if base_model in _NOT_PORTED:
         raise NotImplementedError(
             f"backbone {base_model!r} is not ported yet (ROADMAP: other "

@@ -1,6 +1,6 @@
 """JAX variable tree -> the port's ``state_dict`` (counterpart of the export
 direction of ``ehgr_tpu/models/torch_import.py``, for the ResNet / TSN /
-ACTION / MTMM-decoder / SD-exit subset the port has).
+ACTION / decoder / SD-exit / text-head subset the port has).
 
 Input is the flax variable tree flattened to ``{path-tuple: array}``, as
 ``flax.traverse_util.flatten_dict`` gives it (first element the collection:
@@ -10,6 +10,7 @@ to its torch key by name rules and each tensor transposed by rank:
   conv2d kernel [kh,kw,I,O]       -> [O,I,kh,kw]   (also depthwise)
   conv3d kernel [kt,kh,kw,I,O]    -> [O,I,kt,kh,kw]
   conv1d kernel [k,I,O]           -> [O,I,k]
+  conv-transpose kernel [kh,kw,O,I] (``transpose_kernel``) -> [I,O,kh,kw]
   dense  kernel [I,O]             -> [O,I]; [O,I,1,1] at the ACTION 1x1 sites
   shift_w [3,C]                   -> action_shift.weight [C,1,3]
 
@@ -19,6 +20,12 @@ Name rules: ``layer{i}_{j}`` -> ``layer{i}.{j}``; ``downsample_conv/bn`` ->
 index}``; ``scala{k}/sep{i}/{dw1,pw1,bn1,dw2,pw2,bn2}`` ->
 ``scala{k}.{i}.op.{0,1,2,4,5,6}``; ``middle_fc{k}`` keeps its name; BN
 leaves ``scale/bias/mean/var`` -> ``weight/bias/running_mean/running_var``.
+The four decoders (``global_decoder``, ``local_decoder``,
+``local_skel_decoder``, ``global_skel_decoder``) go by the leaf module's
+own name, since the MTMM and the joint-stage decoder share the prefix
+``global_decoder``: ``conv0..4/bn0..3`` (the MTMM decoder) by the table
+above, ``ct{i}`` -> ``2i`` and ``ctbn{i}`` -> ``2i+1`` (the transposed
+decoders); ``text_encoder/{conv,bn}`` -> ``text_encoder.{0,1}``.
 """
 
 from __future__ import annotations
@@ -55,9 +62,18 @@ _SEPCONV_SEQ = {"dw1": "0", "pw1": "1", "bn1": "2", "dw2": "4", "pw2": "5",
 # the JAX optimizer pads ``hyper['lr_steps']`` to a fixed width with this
 # epoch, which no run reaches
 _LR_STEP_PAD = 2 ** 30
-# modules of surfaces the port does not have yet (the joint stage's heads)
-_NOT_PORTED = ("local_decoder", "local_skel_decoder", "global_skel_decoder",
-               "text_encoder")
+_DECODERS = ("global_decoder", "local_decoder", "local_skel_decoder",
+             "global_skel_decoder")
+_TEXT_SEQ = {"conv": "0", "bn": "1"}
+
+
+def _decoder_index(p: str) -> str:
+    """A decoder's child module -> its ``nn.Sequential`` index."""
+    if p.startswith("ctbn"):
+        return str(2 * int(p[4:]) + 1)
+    if p.startswith("ct"):
+        return str(2 * int(p[2:]))
+    return _DECODER_SEQ[p]
 
 
 def torch_key(path: Tuple[str, ...]) -> str:
@@ -65,10 +81,6 @@ def torch_key(path: Tuple[str, ...]) -> str:
     *parts, leaf = path
     out = []
     for p in parts:
-        if p.startswith(_NOT_PORTED):
-            raise NotImplementedError(
-                f"{'/'.join(path)}: surface not ported yet (ROADMAP: the "
-                "joint stage)")
         if p.startswith("layer") and "_" in p:
             stage, block = p[5:].split("_")
             out += [f"layer{stage}", block]
@@ -80,12 +92,10 @@ def torch_key(path: Tuple[str, ...]) -> str:
             out += [p[3:], "op"]
         elif out and out[-1] == "op":
             out.append(_SEPCONV_SEQ[p])
-        elif out == ["global_decoder"]:
-            if p not in _DECODER_SEQ:
-                raise NotImplementedError(
-                    f"{'/'.join(path)}: not the MTMM global decoder (the "
-                    "joint-stage decoders are a ROADMAP item)")
-            out.append(_DECODER_SEQ[p])
+        elif len(out) == 1 and out[0] in _DECODERS:
+            out.append(_decoder_index(p))
+        elif out == ["text_encoder"]:
+            out.append(_TEXT_SEQ[p])
         else:
             out.append(_ACTION_CHILD.get(p, p))
     if leaf == "shift_w":

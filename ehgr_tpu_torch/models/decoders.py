@@ -1,7 +1,7 @@
 """Auxiliary heads (counterpart of ``ehgr_tpu/models/decoders.py``): the MTMM
-global depth decoder and the SD exits (``SepConv``, ``Scala``).
-``TransposedDecoder`` and ``TextEncoder`` (the joint-stage heads) are
-ROADMAP items.
+global depth decoder, the SD exits (``SepConv``, ``Scala``) and the joint
+stage's heads (``TransposedDecoder`` for depth and skeleton maps,
+``TextEncoder`` for the clip's text embedding).
 
 These BNs sit outside ``base_model``, so partial BN never freezes them: they
 train on batch statistics whatever ``partial_bn`` says, while the
@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ehgr_tpu_torch.models.layers import Conv2d
+from ehgr_tpu_torch.models.layers import Conv1d, Conv2d, ConvTranspose2d
 from ehgr_tpu_torch.models.norm import BatchNorm
 
 
@@ -45,6 +45,44 @@ class GlobalDepthDecoder(nn.Sequential):
                    BatchNorm(32, device=device), nn.ReLU(),
                    Conv2d(32, 1, 1, bias=True, device=device), nn.Sigmoid()]
         super().__init__(*layers)
+
+
+class TransposedDecoder(nn.Sequential):
+    """The joint stage's decoder: (ConvTranspose 4x4 stride 2 + BN) through
+    ``widths``, a last ConvTranspose to ``out_features`` (1 = depth, 42 =
+    skeleton heatmaps) and a sigmoid, no ReLU; each stage doubles H and W.
+    flax's ``ConvTranspose(padding='SAME', transpose_kernel=True)`` at k4 s2
+    is torch's ``ConvTranspose2d(k=4, s=2, padding=1)``; keys ``2i`` (the
+    i-th transposed conv) and ``2i+1`` (its BN), as the reference's
+    ``nn.Sequential``."""
+
+    def __init__(self, in_channels: int, widths, out_features: int = 1,
+                 device=None):
+        layers, c = [], in_channels
+        for w in widths:
+            layers += [ConvTranspose2d(c, w, 4, stride=2, padding=1,
+                                       device=device),
+                       BatchNorm(w, device=device)]
+            c = w
+        layers += [ConvTranspose2d(c, out_features, 4, stride=2, padding=1,
+                                   device=device), nn.Sigmoid()]
+        super().__init__(*layers)
+
+
+class TextEncoder(nn.Sequential):
+    """The clip-level text embedding: ``Conv1d(in_features -> features,
+    kernel=T)`` + BN over the pooled per-frame features, ``[N, T, C] ->
+    [N, features]``; keys ``0`` (the conv) and ``1`` (the BN)."""
+
+    def __init__(self, in_features: int, t: int, features: int = 512,
+                 device=None):
+        super().__init__(Conv1d(in_features, features, t, device=device),
+                         BatchNorm(features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv, bn = self
+        y = conv(x.transpose(1, 2))                    # [N, features, 1]
+        return bn(y[..., None])[:, :, 0, 0]
 
 
 class SepConv(nn.Module):

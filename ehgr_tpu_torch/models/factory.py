@@ -17,8 +17,11 @@ def build_model(m: ModelConfig, arch: Optional[str] = None,
                 device: DeviceLike = None,
                 generator: Optional[torch.Generator] = None) -> TSN:
     """``m.arch`` (or ``arch``) built from ``m`` on ``device`` (default
-    CUDA), weights drawn from ``generator``.  Quantized inference is not
-    ported and raises."""
+    CUDA), weights drawn from ``generator``, with ``m.modal``,
+    ``m.temporal_pool`` and ``m.before_softmax`` as the JAX ``build_model``
+    applies them.  ``m.consensus_type`` is not passed, as the JAX
+    ``build_model`` does not pass it: the model keeps ``'avg'`` (``variant``
+    takes the option).  Quantized inference is not ported and raises."""
     if m.quantize:
         raise NotImplementedError(
             f"quantize={m.quantize!r}: int8 inference is not ported yet "
@@ -27,8 +30,10 @@ def build_model(m: ModelConfig, arch: Optional[str] = None,
                    num_segments=m.num_segments, base_model=m.base_model,
                    temporal=(m.temporal_module if m.is_shift else "none"),
                    shift_div=m.shift_div, dropout=m.dropout,
-                   partial_bn=m.partial_bn,
+                   partial_bn=m.partial_bn, modal=m.modal,
                    action_fused=(m.action_fused or None),
                    action_stages=tuple(m.action_stages), remat=m.remat,
+                   temporal_pool=m.temporal_pool,
+                   before_softmax=m.before_softmax,
                    dtype=getattr(torch, m.dtype), device=device,
                    generator=generator)

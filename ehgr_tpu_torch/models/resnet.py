@@ -6,8 +6,9 @@ decides what ``conv1`` of each bottleneck is at build time; ``partial_bn``
 keeps every BN but the stem's on its running statistics in training,
 the ACTION ``p3_bn1`` included; ``remat`` recomputes each bottleneck's
 forward in the backward pass instead of keeping its activations (the JAX
-``nn.remat(Bottleneck)``).  Module names
-follow the torch keys of ``export_state_dict`` (``layer{i}.{j}``,
+``nn.remat(Bottleneck)``); ``temporal_pool`` max-pools T by 2 after
+stage 2, so the temporal modules of stages 3-4 see T/2 frames.  Module
+names follow the torch keys of ``export_state_dict`` (``layer{i}.{j}``,
 ``downsample.0/1``).  Activations are ``[N*T, C, H, W]`` channels_last.
 """
 
@@ -24,6 +25,7 @@ from torch.utils.checkpoint import checkpoint
 from ehgr_tpu_torch.models.layers import Conv2d
 from ehgr_tpu_torch.models.norm import BatchNorm
 from ehgr_tpu_torch.ops.action import ActionConv, TSMConv
+from ehgr_tpu_torch.ops.temporal_shift import temporal_pool as _tpool
 
 STAGE_SIZES = {
     "resnet50": (3, 4, 6, 3),
@@ -98,17 +100,23 @@ class ResNetBackbone(nn.Module):
     (post-maxpool), ``layer1..4`` and ``pool`` (global average,
     ``[NT, C]``).  ``stages < 4`` builds and runs only the first ones (a
     truncated deploy model has no deeper weights, and no ``pool`` tap).
-    ``remat`` takes effect where autograd records (training)."""
+    ``remat`` takes effect where autograd records (training).
+    ``temporal_pool``: after stage 2 (its tap keeps T frames) the frames of
+    each clip are max-pooled by 2 (kernel 3, padding 1), and every
+    temporal module of stages 3-4 is built for ``n_segment // 2``."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  temporal: str = "action", n_segment: int = 8,
                  shift_div: int = 8, action_fused=None,
                  action_stages: Sequence[int] = (1, 2, 3, 4),
                  partial_bn: bool = True, stages: int = 4,
-                 remat: bool = False, device=None):
+                 remat: bool = False, temporal_pool: bool = False,
+                 device=None):
         super().__init__()
         self.stages = stages
         self.remat = remat
+        self.temporal_pool = temporal_pool
+        self.n_segment = n_segment
         self.conv1 = Conv2d(3, 64, 7, stride=2, padding=3, bias=False,
                             device=device)
         self.bn1 = BatchNorm(64, device=device)
@@ -117,6 +125,7 @@ class ResNetBackbone(nn.Module):
                 zip(stage_sizes[:stages], (64, 128, 256, 512)), 1):
             # ACTION on every block; every other one for >=23-block stages
             n_round = 2 if n_blocks >= 23 else 1
+            seg = n_segment // 2 if temporal_pool and i > 2 else n_segment
             blocks = []
             for j in range(n_blocks):
                 blocks.append(Bottleneck(
@@ -124,7 +133,7 @@ class ResNetBackbone(nn.Module):
                     has_downsample=(j == 0),
                     temporal=temporal if (j % n_round == 0 and
                                           i in action_stages) else "none",
-                    n_segment=n_segment, shift_div=shift_div,
+                    n_segment=seg, shift_div=shift_div,
                     action_fused=action_fused, bn_frozen=partial_bn,
                     device=device))
                 in_planes = p * 4
@@ -144,5 +153,10 @@ class ResNetBackbone(nn.Module):
             else:
                 x = layer(x)
             taps[f"layer{i}"] = x
+            if self.temporal_pool and i == 2 and self.stages > 2:
+                nt, c, h, w = x.shape
+                x = _tpool(x.permute(0, 2, 3, 1).reshape(
+                    nt // self.n_segment, self.n_segment, h, w, c))
+                x = x.reshape(-1, h, w, c).permute(0, 3, 1, 2)
         taps["pool"] = x.mean((2, 3))          # AdaptiveAvgPool2d(1)
         return taps

@@ -1,14 +1,17 @@
 """TSN task models (counterpart of ``ehgr_tpu/models/tsn.py``): arch ``tsn``
-(average consensus over the segments' logits), ``tsn_mtmm`` (plus the
-global depth decoder on layer4, stage 1 of the recipe), ``tsn_sd`` (plus
-the three scala exits of stage 2, self-distillation) and the truncated
-deploys ``tsn_middle1/2/3`` (stages up to K and exit K only).
+(segment consensus over the frames' logits), ``tsn_mtmm`` (plus the global
+depth decoder on layer4, stage 1 of the recipe), ``tsn_sd`` (plus the three
+scala exits of stage 2, self-distillation), ``tsn_mtmm_sd`` (the joint
+stage: the SD exits plus the modal heads that ``modal`` names) and the
+truncated deploys ``tsn_middle1/2/3`` (stages up to K and exit K only).
 
 Input is ``[N, T, H, W, C]``; frames fold into the batch as ``N*T`` for the
 2D backbone (channels_last, so the fold is a free view) and the logits
-unfold back to ``[N, T, classes]`` for the segment consensus.  The joint
-stage ``tsn_mtmm_sd`` and the TSN options ``temporal_pool``,
-``before_softmax`` and ``consensus_type`` are ROADMAP items.
+unfold back to ``[N, T, classes]`` for the segment consensus.  The TSN
+options: ``consensus_type`` (``avg`` or ``identity``), ``before_softmax``
+(False: a softmax per frame, in the compute dtype, before the consensus)
+and ``temporal_pool`` (T halved after stage 2; every head's consensus then
+runs over T/2 frames, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ from torch import nn
 
 from ehgr_tpu_torch.device import DeviceLike, resolve_device
 from ehgr_tpu_torch.models.backbones import get_backbone
-from ehgr_tpu_torch.models.decoders import GlobalDepthDecoder, Scala
+from ehgr_tpu_torch.models.decoders import (GlobalDepthDecoder, Scala,
+                                           TextEncoder, TransposedDecoder)
 from ehgr_tpu_torch.models.layers import Linear, init_params
 from ehgr_tpu_torch.ops.consensus import consensus
 
@@ -28,6 +32,14 @@ _FEATURES = {"resnet50": 2048, "resnet101": 2048}
 # input width and SepConv widths of each SD exit (taps layer1..3 of ResNet)
 _SCALA = {1: (256, (512, 1024, 2048)), 2: (512, (1024, 2048)),
           3: (1024, (2048,))}
+# the joint stage's modal heads: (name, modal word, tap, widths, channels),
+# in the reference's output order (models_MTMM_SD.py:517-532)
+_MODAL_DECODERS = (
+    ("local_decoder", "depth", "stem", (32,), 1),
+    ("global_decoder", "depth", "layer4", (256, 32), 1),
+    ("local_skel_decoder", "skeleton", "stem", (64,), 42),
+    ("global_skel_decoder", "skeleton", "layer4", (256, 64), 42))
+_TAP_WIDTH = {"stem": 64, "layer4": 2048}
 
 
 class TSN(nn.Module):
@@ -36,8 +48,14 @@ class TSN(nn.Module):
     ``with_sd`` the 8-tuple ``(logits, mid1, mid2, mid3, final_fea, f1, f2,
     f3)`` of the SD exits (``mid{k}`` the exit's logits, ``f{k}`` its
     per-frame feature ``[N*T, 2048]``, ``final_fea`` the pooled feature
-    before dropout); with ``truncate_at=K`` only exit K's logits, the
-    backbone built and run up to stage K.
+    before dropout), followed, when ``modal`` names them, by the local
+    (stem, ``[N*T, 224, 224, 1]`` at 224^2) and global (layer4, 56^2) depth
+    maps, the local and global skeleton heatmaps (42 channels) and the text
+    embedding ``[N, 512]`` (the pooled feature reshaped by
+    ``num_segments``, as JAX reshapes it also under ``temporal_pool``,
+    where that gives N/2 rows);
+    with ``truncate_at=K`` only exit K's logits, the backbone built and run
+    up to stage K.
 
     Parameters are f32 on ``device`` (default CUDA, see
     ``ehgr_tpu_torch.device``); ``dtype`` is the compute dtype.  Weights are
@@ -53,9 +71,12 @@ class TSN(nn.Module):
                  base_model: str = "resnet50", temporal: str = "action",
                  shift_div: int = 8, dropout: float = 0.5,
                  partial_bn: bool = True, with_depth: bool = False,
-                 with_sd: bool = False, truncate_at: int = 0,
-                 action_fused: Any = None, action_stages=(1, 2, 3, 4),
-                 remat: bool = False, dtype: torch.dtype = torch.float32,
+                 with_sd: bool = False, modal: str = "rgb",
+                 truncate_at: int = 0, action_fused: Any = None,
+                 action_stages=(1, 2, 3, 4), remat: bool = False,
+                 consensus_type: str = "avg", before_softmax: bool = True,
+                 temporal_pool: bool = False,
+                 dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -65,12 +86,16 @@ class TSN(nn.Module):
         self.with_depth = with_depth
         self.with_sd = with_sd
         self.truncate_at = truncate_at
+        self.consensus_type = consensus_type
+        self.before_softmax = before_softmax
+        self.temporal_pool = temporal_pool
         self.dtype = dtype
         self.base_model = get_backbone(
             base_model, temporal=temporal, n_segment=num_segments,
             shift_div=shift_div, action_fused=action_fused,
             action_stages=action_stages, partial_bn=partial_bn,
-            stages=truncate_at or 4, remat=remat, device=dev)
+            stages=truncate_at or 4, remat=remat,
+            temporal_pool=temporal_pool, device=dev)
         width = _FEATURES[base_model]
         self.exits = (truncate_at,) if truncate_at else \
             (1, 2, 3) if with_sd else ()
@@ -82,6 +107,14 @@ class TSN(nn.Module):
             self.new_fc = Linear(width, num_class, device=dev)
         if with_depth:
             self.global_decoder = GlobalDepthDecoder(width, device=dev)
+        self.modal_heads = [d for d in _MODAL_DECODERS
+                            if with_sd and d[1] in modal]
+        for name, _, tap, widths, out in self.modal_heads:
+            setattr(self, name, TransposedDecoder(_TAP_WIDTH[tap], widths,
+                                                  out, device=dev))
+        self.with_text = with_sd and "text" in modal
+        if self.with_text:
+            self.text_encoder = TextEncoder(width, num_segments, device=dev)
         gen = generator if generator is not None \
             else torch.Generator().manual_seed(0)
         init_params(self, gen)
@@ -93,10 +126,17 @@ class TSN(nn.Module):
                                                      generator=gen))
         self.eval()
 
-    def _head(self, fc: nn.Module, feat: torch.Tensor,
-              n: int) -> torch.Tensor:
-        """Per-frame logits of ``fc`` -> consensus over T, f32."""
-        return consensus(fc(feat).reshape(n, self.num_segments, -1)).float()
+    def _head(self, fc: nn.Module, feat: torch.Tensor) -> torch.Tensor:
+        """Per-frame logits of ``fc`` (their softmax, in the compute dtype,
+        without ``before_softmax``) -> consensus over the segments (T/2
+        under ``temporal_pool``, for every head as in JAX), f32."""
+        seg = self.num_segments // 2 if self.temporal_pool \
+            else self.num_segments
+        logits = fc(feat)
+        if not self.before_softmax:
+            logits = torch.softmax(logits, -1)
+        return consensus(logits.reshape(-1, seg, logits.shape[-1]),
+                         self.consensus_type).float()
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
@@ -115,7 +155,7 @@ class TSN(nn.Module):
         for k in self.exits:
             h = getattr(self, f"scala{k}")(taps[f"layer{k}"]).mean((2, 3))
             mid_feas.append(h.float())                  # [NT, 2048]
-            mids.append(self._head(getattr(self, f"middle_fc{k}"), h, n))
+            mids.append(self._head(getattr(self, f"middle_fc{k}"), h))
         if self.truncate_at:
             return mids[0]
         feat = taps["pool"]                             # [NT, 2048]
@@ -128,9 +168,15 @@ class TSN(nn.Module):
             mask = torch.empty(feat.shape, device=feat.device).bernoulli_(
                 keep, generator=generator)
             feat = feat * (mask / keep).to(feat.dtype)
-        logits = self._head(self.new_fc, feat, n)
+        logits = self._head(self.new_fc, feat)
         if self.with_sd:
-            return (logits, *mids, final_fea.float(), *mid_feas)
+            extras = tuple(
+                getattr(self, name)(taps[tap]).permute(0, 2, 3, 1).float()
+                for name, _, tap, _, _ in self.modal_heads)
+            if self.with_text:
+                extras += (self.text_encoder(final_fea.reshape(
+                    -1, self.num_segments, final_fea.shape[-1])).float(),)
+            return (logits, *mids, final_fea.float(), *mid_feas, *extras)
         if not self.with_depth:
             return logits
         depth = self.global_decoder(taps["layer4"])     # [NT, 1, h, w]
@@ -143,21 +189,27 @@ _MIDDLE = {"tsn_middle1": 1, "tsn_middle2": 2, "tsn_middle3": 3}
 def variant(arch: str, num_class: int, num_segments: int,
             base_model: str = "resnet50", temporal: str = "action",
             shift_div: int = 8, dropout: float = 0.5,
-            partial_bn: bool = True, action_fused: Any = None,
-            action_stages: Any = (1, 2, 3, 4), remat: bool = False,
+            partial_bn: bool = True, modal: str = "rgb_depth",
+            action_fused: Any = None, action_stages: Any = (1, 2, 3, 4),
+            remat: bool = False, consensus_type: str = "avg",
+            before_softmax: bool = True, temporal_pool: bool = False,
             dtype: torch.dtype = torch.float32, device: DeviceLike = None,
             generator: Optional[torch.Generator] = None) -> TSN:
-    """Build the model surface ``arch`` (``tsn``, ``tsn_mtmm``, ``tsn_sd``
-    and ``tsn_middle1/2/3`` are ported)."""
-    if arch == "tsn_mtmm_sd":
-        raise NotImplementedError(
-            f"arch {arch!r} is not ported yet (ROADMAP: the joint stage)")
-    if arch not in ("tsn", "tsn_mtmm", "tsn_sd") and arch not in _MIDDLE:
+    """Build the model surface ``arch`` (``tsn``, ``tsn_mtmm``, ``tsn_sd``,
+    ``tsn_mtmm_sd`` with the heads of ``modal``, which no other arch reads,
+    and ``tsn_middle1/2/3``), with the TSN options ``consensus_type``,
+    ``before_softmax`` and ``temporal_pool``."""
+    if arch not in ("tsn", "tsn_mtmm", "tsn_sd", "tsn_mtmm_sd") and \
+            arch not in _MIDDLE:
         raise ValueError(f"unknown arch: {arch}")
     return TSN(num_class=num_class, num_segments=num_segments,
                base_model=base_model, temporal=temporal,
                shift_div=shift_div, dropout=dropout, partial_bn=partial_bn,
-               with_depth=arch == "tsn_mtmm", with_sd=arch == "tsn_sd",
+               with_depth=arch == "tsn_mtmm",
+               with_sd=arch in ("tsn_sd", "tsn_mtmm_sd"),
+               modal=modal if arch == "tsn_mtmm_sd" else "rgb",
                truncate_at=_MIDDLE.get(arch, 0), action_fused=action_fused,
                action_stages=tuple(action_stages), remat=remat,
-               dtype=dtype, device=device, generator=generator)
+               consensus_type=consensus_type, before_softmax=before_softmax,
+               temporal_pool=temporal_pool, dtype=dtype, device=device,
+               generator=generator)

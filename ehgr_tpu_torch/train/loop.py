@@ -139,10 +139,6 @@ def run_training(cfg: Config, stage: str, train_dataset, val_dataset,
     """Train ``stage`` on the given datasets on ``device`` (default CUDA);
     returns ``best_top1``, ``ema_best_top1``, ``final_train_loss``, the
     last validation and ``run_dir``."""
-    if stage == "mtmm_sd":
-        raise NotImplementedError(
-            f"stage {stage!r} is not ported yet (ROADMAP: queue 1, item 3, "
-            "the joint stage)")
     if stage not in STAGES:
         raise ValueError(f"unknown stage: {stage}")
     dev = resolve_device(device)
@@ -194,7 +190,7 @@ def run_training(cfg: Config, stage: str, train_dataset, val_dataset,
                               ema_decay=cfg.optim.ema_decay,
                               mean=cfg.data.mean, std=cfg.data.std,
                               accum_steps=cfg.optim.accum_steps)
-    multi = stage == "sd"
+    multi = stage in ("sd", "mtmm_sd")
     eval_fn = make_eval_step(model, mean=cfg.data.mean, std=cfg.data.std,
                              multi_output=multi)
     eval_ema_fn = make_eval_step(model, mean=cfg.data.mean, std=cfg.data.std,

@@ -1,15 +1,17 @@
 """Train and eval steps (counterpart of ``ehgr_tpu/train/steps.py``) for the
-stages the port has: ``baseline`` (arch ``tsn``, CE), ``mtmm`` (arch
-``tsn_mtmm``, CE + w * MSE of the depth map against the next segment's
-depth resized to 56^2) and ``sd`` (arch ``tsn_sd``, CE of the final head and
-the three exits, KD of each exit against the final head, feature hints).
-The joint stage ``mtmm_sd`` is a ROADMAP item.
+four stages: ``baseline`` (arch ``tsn``, CE), ``mtmm`` (arch ``tsn_mtmm``,
+CE + w * MSE of the depth map against the next segment's depth resized to
+56^2), ``sd`` (arch ``tsn_sd``, CE of the final head and the three exits, KD
+of each exit against the final head, feature hints) and the joint
+``mtmm_sd`` (arch ``tsn_mtmm_sd``: the SD losses plus w * MSE of the
+global transposed decoder's map, ``out[9]``, against the CURRENT clip's
+depth; the local decoder's map is not supervised).
 
 One step: uint8 batch to the model's device, ``normalize_clip`` in f32,
 forward in the model's compute dtype, loss, backward, the policy SGD update
 and the EMA blend of the parameters and BN running statistics.  Batches are
 ``{"rgb": uint8 [N,T,H,W,3], "depth": uint8 [N,T,H,W,1] (mtmm),
-"label": [N]}``, numpy or tensors.
+"label": [N]}``, numpy or tensors (depth for ``mtmm`` and ``mtmm_sd``).
 
 The model holds the parameters and statistics; the step updates them, the
 optimizer's momentum and the EMA in place.
@@ -30,7 +32,7 @@ from ehgr_tpu_torch.train import losses
 from ehgr_tpu_torch.train.ema import ema_update
 from ehgr_tpu_torch.train.optim import SgdPolicies, SgdState
 
-STAGES = ("baseline", "mtmm", "sd")
+STAGES = ("baseline", "mtmm", "sd", "mtmm_sd")
 
 
 @dataclass
@@ -65,9 +67,6 @@ def make_loss_fn(model: nn.Module, *, stage: str, loss_cfg,
                  mean: Sequence[float], std: Sequence[float]) -> Callable:
     """``(batch on the device, generator) -> (total, aux, logits)`` of one
     forward of ``model`` in its current mode."""
-    if stage == "mtmm_sd":
-        raise NotImplementedError(
-            f"stage {stage!r} is not ported yet (ROADMAP: the joint stage)")
     if stage not in STAGES:
         raise ValueError(f"unknown stage: {stage}")
 
@@ -85,10 +84,18 @@ def make_loss_fn(model: nn.Module, *, stage: str, loss_cfg,
                 alpha=loss_cfg.alpha, beta=loss_cfg.beta,
                 temperature=loss_cfg.temperature)
             return total, aux, logits
-        logits, depth_pred = out
-        depth_pred = depth_pred.reshape((-1,) + depth_pred.shape[-3:])
         depth_gt = depth_to_target(batch["depth"], loss_cfg.depth_size)
         depth_gt = depth_gt.reshape((-1,) + depth_gt.shape[2:])
+        if stage == "mtmm_sd":
+            logits, m1, m2, m3, ffea, f1, f2, f3 = out[:8]
+            total, aux = losses.mtmm_sd_total(
+                logits, (m1, m2, m3), labels, ffea, (f1, f2, f3), out[9],
+                depth_gt, alpha=loss_cfg.alpha, beta=loss_cfg.beta,
+                temperature=loss_cfg.temperature,
+                depth_weight=loss_cfg.depth_weight)
+            return total, aux, logits
+        logits, depth_pred = out
+        depth_pred = depth_pred.reshape((-1,) + depth_pred.shape[-3:])
         total, aux = losses.mtmm_total(logits, labels, depth_pred, depth_gt,
                                        depth_weight=loss_cfg.depth_weight)
         return total, aux, logits
@@ -149,8 +156,8 @@ def make_eval_step(model: nn.Module, *, mean: Sequence[float],
                    std: Sequence[float], use_ema: bool = False,
                    multi_output: bool = False) -> Callable:
     """``(state, batch) -> counts``: top-1/top-5 hits of the final head
-    (and the exits with ``multi_output``) and ``n``, with the live or the
-    EMA weights."""
+    (and the three exits with ``multi_output``, for the SD and the joint
+    surfaces) and ``n``, with the live or the EMA weights."""
     device = next(model.parameters()).device
 
     def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:

@@ -1,10 +1,12 @@
-"""Two golden anchors of ``tests/test_regression.py`` on the port, from the
-same init as the JAX tests (key 42, N=2, T=4, 32^2, 5 classes, the linspace
-input, full-depth ResNet-50, partial BN off, the plain ACTION formulation):
-``GOLD_MTMM_DEPTH``, the ``tsn_mtmm`` global depth output that the MTMM
-loss trains, and ``GOLD_TSN_STAGE4``, ``tsn`` with ACTION on stage 4 alone.
-The JAX variables are converted into the port's model; the limits are the
-JAX tests'."""
+"""Three golden anchors of ``tests/test_regression.py`` on the port, from
+the same init as the JAX tests (key 42, N=2, T=4, 32^2, 5 classes, the
+linspace input, full-depth ResNet-50, partial BN off, the plain ACTION
+formulation): ``GOLD_MTMM_DEPTH``, the ``tsn_mtmm`` global depth output
+that the MTMM loss trains, ``GOLD_MTMMSD_GDEPTH``, the ``tsn_mtmm_sd``
+global transposed decoder's output (``out[9]``, ``modal='rgb_depth'``)
+that the joint loss trains, and ``GOLD_TSN_STAGE4``, ``tsn`` with ACTION on
+stage 4 alone.  The JAX variables are converted into the port's model; the
+limits are the JAX tests'."""
 
 import numpy as np
 import pytest
@@ -18,7 +20,9 @@ from ehgr_tpu.models.tsn import variant as j_variant
 from ehgr_tpu_torch.models.convert import load_jax_variables
 from ehgr_tpu_torch.models.tsn import variant
 
-from test_regression import GOLD_MTMM_DEPTH, GOLD_TSN, GOLD_TSN_STAGE4
+from test_regression import (GOLD_MTMM_DEPTH, GOLD_MTMMSD_GDEPTH,
+                             GOLD_MTMMSD_GDEPTH_IDX, GOLD_TSN,
+                             GOLD_TSN_STAGE4)
 from test_torch_train import single_thread  # noqa: F401  (a fixture)
 
 CLS, T, HW = 5, 4, 32
@@ -51,6 +55,15 @@ def test_tsn_mtmm_depth_anchor():
                                atol=1e-4)
     np.testing.assert_allclose(depth.double().numpy().reshape(-1)[:5],
                                GOLD_MTMM_DEPTH, rtol=2e-2, atol=1e-5)
+
+
+def test_tsn_mtmm_sd_gdepth_anchor():
+    out = port_outputs("tsn_mtmm_sd")
+    np.testing.assert_allclose(out[0].numpy()[0, :5], GOLD_TSN, rtol=2e-3,
+                               atol=1e-4)
+    g = out[9].double().numpy().reshape(-1)
+    np.testing.assert_allclose(g[GOLD_MTMMSD_GDEPTH_IDX], GOLD_MTMMSD_GDEPTH,
+                               rtol=2e-2)
 
 
 def test_tsn_action_stage4_anchor():

@@ -234,8 +234,11 @@ class TestTsnSd:
             np.testing.assert_allclose(g, w, err_msg=name, **tol)
 
     def test_joint_stage_raises(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            _port("tsn_mtmm_sd")
+        """The joint arch builds (tests/test_torch_joint.py holds it against
+        JAX): with ``modal='rgb'`` it is ``tsn_sd``'s surface, key for key;
+        an unknown arch raises."""
+        joint = _port("tsn_mtmm_sd", modal="rgb")
+        assert list(joint.state_dict()) == list(_port("tsn_sd").state_dict())
         with pytest.raises(ValueError, match="unknown arch"):
             _port("tsn_middle4")
 

@@ -156,12 +156,17 @@ class TestSdSteps:
 
     @pytest.mark.usefixtures("single_thread")
     def test_joint_stage_raises(self):
+        """The joint stage builds its step (tests/test_torch_joint.py holds
+        it against JAX); an unknown stage raises; ``sd`` steps."""
         with tiny_resnet():
             m = variant("tsn_sd", num_class=CLS, num_segments=T,
                         device="cpu")
         opt, _ = build_optimizer(m, OptimConfig())
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(m, opt, stage="mtmm_sd", loss_cfg=LossConfig(),
+        assert callable(make_train_step(
+            m, opt, stage="mtmm_sd", loss_cfg=LossConfig(), ema_decay=0.9,
+            mean=MEAN, std=STD))
+        with pytest.raises(ValueError, match="unknown stage"):
+            make_train_step(m, opt, stage="joint", loss_cfg=LossConfig(),
                             ema_decay=0.9, mean=MEAN, std=STD)
         step = make_train_step(m, opt, stage="sd", loss_cfg=LossConfig(),
                                ema_decay=0.9, mean=MEAN, std=STD)

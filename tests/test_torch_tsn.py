@@ -150,14 +150,10 @@ class TestEntryPoints:
     @pytest.mark.parametrize("arch", ["tsn_mtmm", "tsn_sd", "tsn_mtmm_sd",
                                       "tsn_middle2"])
     def test_unported_surfaces_raise(self, arch):
-        """The joint stage ``tsn_mtmm_sd`` raises naming its ROADMAP item;
-        tsn_mtmm (training slice), tsn_sd and tsn_middle2 (SD slice) are
-        ported and return their outputs (tests/test_torch_sd.py holds them
-        against JAX)."""
-        if arch == "tsn_mtmm_sd":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                variant(arch, num_class=CLS, num_segments=T, device="cpu")
-            return
+        """Every TSN surface is ported and returns its outputs: tsn_mtmm
+        (training slice), tsn_sd and tsn_middle2 (SD slice;
+        tests/test_torch_sd.py holds them against JAX) and the joint
+        tsn_mtmm_sd (tests/test_torch_joint.py)."""
         m = variant(arch, num_class=CLS, num_segments=T, device="cpu")
         with torch.no_grad():
             out = m(torch.zeros(1, T, HW, HW, 3))
@@ -167,6 +163,10 @@ class TestEntryPoints:
         elif arch == "tsn_sd":
             assert [tuple(o.shape) for o in out] == \
                 [(1, CLS)] * 4 + [(T, 2048)] * 4
+        elif arch == "tsn_mtmm_sd":              # modal 'rgb_depth'
+            assert [tuple(o.shape) for o in out] == \
+                [(1, CLS)] * 4 + [(T, 2048)] * 4 + [(T, HW, HW, 1),
+                                                    (T, 8, 8, 1)]
         else:
             assert out.shape == (1, CLS)
             assert not hasattr(m.base_model, "layer3")
