@@ -107,7 +107,24 @@ Phases; any miss raises and the run exits nonzero:
    on the device alone with its inputs cold in L2 (CUDA events around the
    call just after a 1 GiB write; each kernel's duration from a
    ``torch.profiler`` trace beside), the shift backward beside its route
-   and strip geometry and its earlier design.
+   and strip geometry and its earlier design;
+14. int8 inference (run beside the phases above): ``int8_conv`` (the
+   implicit-GEMM int8 conv, ``csrc/int8_conv.cu``, no Pallas counterpart)
+   held bitwise to ``int8_conv_plain`` at the 15 site shapes of the 36
+   int8 sites of ResNet-50 and at one site at T/2 = 4 frames, bf16 and f32
+   out, right after the ACTION checks; ``int8_serve`` after the serve
+   profile: the scorer on the serve model's weights with
+   ``quantize='static'`` calibrated on the first request batch (36
+   ``int8_conv`` + 16 + 16 ACTION launches a forward), its probabilities
+   against the same model on ``int8_conv_plain`` and its logits' cosine
+   against the float bf16 model's, then one batch in 'dynamic';
+   ``int8_test`` after ``test_ego``: ``run_test`` on the config of ``cli.test
+   --quantize static --action_fused mega`` over test_ego's videos and
+   weights (calibrated on the first two loader batches: 2 more ACTION
+   forwards), its 36 ``act_scale``s, the first batch against
+   ``int8_conv_plain`` within test_ego's gate, then ``cli.test --quantize
+   dynamic``; each site shape timed in the timings phase beside its bound,
+   ``torch._int_mm`` (1x1 stride 1 only) and the bf16 cuDNN conv.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
@@ -175,8 +192,9 @@ TPOOL_SITES = SITES[4:]
 # enqueued the call before the write ends
 FLUSH_BYTES = 1 << 30
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense bf16 / fp32 FLOP/s
+# and int8 operations/s
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "int8": 1979e12}
 # kernel vs plain, max |err| over max |plain|: fp32 differs only in
 # summation order; bf16 also in two roundings to bf16 (2^-9 relative
 # each): of the gated tile fed to the tensor cores, and of the output
@@ -257,6 +275,40 @@ JOINT_SKIPPED = tuple(
      "global_decoder.15.weight", "global_decoder.15.bias"] +
     [f"global_decoder.{i}.{leaf}" for i in (5, 9, 13) for leaf in
      ("weight", "bias", "running_mean", "running_var")])
+
+
+# the 36 int8 sites of a TSN + ACTION ResNet-50 at 224^2 (ops/quantize.py;
+# the ACTION conv1s, the stem and the head stay float): (site, Cin, Cout,
+# kernel, stride, input H = W, sites a forward), 15 shapes
+INT8_SITES = [("conv2", 64, 64, 3, 1, 56, 3),
+              ("conv2", 128, 128, 3, 1, 28, 3),
+              ("conv2", 256, 256, 3, 1, 14, 5),
+              ("conv2", 512, 512, 3, 1, 7, 2),
+              ("conv2", 128, 128, 3, 2, 56, 1),
+              ("conv2", 256, 256, 3, 2, 28, 1),
+              ("conv2", 512, 512, 3, 2, 14, 1),
+              ("conv3", 64, 256, 1, 1, 56, 3),
+              ("conv3", 128, 512, 1, 1, 28, 4),
+              ("conv3", 256, 1024, 1, 1, 14, 6),
+              ("conv3", 512, 2048, 1, 1, 7, 3),
+              ("downsample", 64, 256, 1, 1, 56, 1),
+              ("downsample", 256, 512, 1, 2, 56, 1),
+              ("downsample", 512, 1024, 1, 2, 28, 1),
+              ("downsample", 1024, 2048, 1, 2, 14, 1)]
+# a stage-3 site at T/2 = 4 frames a clip, as temporal_pool runs it
+INT8_TPOOL = INT8_SITES[2]
+# launches of one int8 forward of that model ('mega')
+INT8_FORWARD = {"int8_conv": 36, **MEGA_FORWARD}
+# int8 'static' in run_test calibrates on the first two loader batches, one
+# forward each
+CALIB_FORWARDS = 2
+# the int8 model on the kernel against itself on int8_conv_plain: max abs
+# difference of the video probabilities (the kernel is bitwise its plain
+# version; the rest of the two forwards is the same code on the same card)
+INT8_PLAIN_TOL = 1e-6
+# int8 logits against the float bf16 model's: the cosine must be above JAX's
+# own bar for int8 inference (tests/test_quantize.py)
+INT8_COS = 0.98
 
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
@@ -577,6 +629,7 @@ def _counters():
     those of the window kernel (``csrc/action_stats.cu``)."""
     from ehgr_tpu_torch.ops.kernels import action_fused as fused
     from ehgr_tpu_torch.ops.kernels import action_mega as mega
+    from ehgr_tpu_torch.ops.kernels import int8_conv as i8
     from ehgr_tpu_torch.ops.kernels import shift as shk
     from ehgr_tpu_torch.ops.kernels import tsm_shift as tk
 
@@ -594,7 +647,8 @@ def _counters():
             "action_prologue_window": (fused.action_prologue.route_launches,
                                        "window"),
             "tsm_shift": (tk.tsm_shift, "launches"),
-            "tsm_shift_reverse": (tk.tsm_shift, "reverse_launches")}
+            "tsm_shift_reverse": (tk.tsm_shift, "reverse_launches"),
+            "int8_conv": (i8.int8_conv, "launches")}
 
 
 # sizes (kernel, clips, T, S, C, Cr) of the window kernel's launches since
@@ -691,21 +745,21 @@ def serve(torch, model, batches, want, name="serve", heads=1):
     wall = time.perf_counter() - t0
     launches = _launches()
 
-    want = {k: want.get(k, 0) * BATCHES for k in launches}
+    want = {k: want.get(k, 0) * len(batches) for k in launches}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want} "
-                             f"({BATCHES} forwards)")
+                             f"({len(batches)} forwards)")
     for p in probs:
         for q in (p if heads > 1 else (p,)):
             if q.shape != (VIDEOS, CLASSES) or \
                     not torch.isfinite(q).all() or \
                     (q.sum(-1) - 1).abs().max().item() > 1e-3:
                 raise AssertionError(f"{name}: bad video probabilities {q}")
-    if res["n_videos"] != VIDEOS * BATCHES:
+    if res["n_videos"] != VIDEOS * len(batches):
         raise AssertionError(f"{name}: evaluate saw {res['n_videos']} "
                              "videos")
-    clips = BATCHES * VIDEOS * CLIPS
-    out = dict(batches=BATCHES, videos=VIDEOS, clips=CLIPS, heads=heads,
+    clips = len(batches) * VIDEOS * CLIPS
+    out = dict(batches=len(batches), videos=VIDEOS, clips=CLIPS, heads=heads,
                launches=launches, top1=res["top1"], top5=res["top5"],
                seconds=wall, clips_per_s=clips / wall)
     print(f"{name} " + json.dumps(out), flush=True)
@@ -1415,19 +1469,43 @@ def _scorer_probs(torch, cfg, arch, heads, frames, skipped_ok=()):
     return out
 
 
+def _mode_gate(torch, cfg, arch, heads, frames, skipped_ok, slack):
+    """The first batch's probabilities of every head against the plain
+    model's: fp32 within LOGIT_TOL, bf16 within ``slack`` times the plain
+    model's own bf16 error from fp32, plus LOGIT_TOL (the rule of
+    compare_logits); one row a head, each with its verdict ``ok``."""
+    probs = _scorer_probs(torch, cfg, arch, heads, frames, skipped_ok)
+    mode = cfg.model.action_fused
+    ref = probs["none", "float32"]
+    names = ["final"] + [f"mid{i}" for i in range(1, heads)]
+    gate = []
+    for h in range(heads):
+        theirs = _rel_err(probs["none", "bfloat16"][h], ref[h])[1]
+        mine = _rel_err(probs[mode, "bfloat16"][h], ref[h])[1]
+        fp32 = _rel_err(probs[mode, "float32"][h], ref[h])[1]
+        g = dict(head=names[h], fp32_rel=fp32, fp32_tol=LOGIT_TOL,
+                 bf16_rel=mine, plain_bf16_rel=theirs,
+                 bf16_tol=slack * theirs + LOGIT_TOL)
+        g["ok"] = bool(fp32 <= LOGIT_TOL and mine <= g["bf16_tol"] and
+                       torch.isfinite(probs[mode, "bfloat16"][h]).all())
+        gate.append(g)
+    return gate
+
+
 def run_protocol(torch, name, cfg, arch, heads, want, slack,
-                 skipped_ok=()):
+                 skipped_ok=(), gate=None, extra=None):
     """A main path: ``run_test(cfg, arch, heads)`` on the card (host
     loader, upload, scorer, votes, metrics), with the kernels'
     launch counters zeroed just before and read just after; each forward
-    (one video of RUN_CLIPS clips) must launch exactly ``want``.  Then, apart:
-    the loader alone and the scorer alone over the same batches (the wall's
-    split between host and card), one scorer call traced (device busy and
-    idle share), and the first batch's probabilities of
-    every head against the plain model's: fp32 within LOGIT_TOL, bf16
-    within ``slack`` times the plain model's own bf16 error from fp32,
-    plus LOGIT_TOL (the rule of compare_logits).  ``skipped_ok``: key
-    prefixes of the checkpoint the model has no place for."""
+    (one video of RUN_CLIPS clips) must launch exactly ``want``, plus
+    ``extra`` over the run (the calibration forwards of int8 'static').
+    Then, apart: the loader alone and the scorer alone over the same
+    batches (the wall's split between host and card), one scorer call
+    traced (device busy and idle share), and the first batch's
+    probabilities under ``gate(cfg, arch, heads, frames, skipped_ok)``
+    (rows with a verdict ``ok``; default ``_mode_gate`` with ``slack``).
+    ``skipped_ok``: key prefixes of the checkpoint the model has no place
+    for."""
     from ehgr_tpu_torch.data.factory import build_test_dataset
     from ehgr_tpu_torch.data.pipeline import Loader
     from ehgr_tpu_torch.eval import runner
@@ -1442,7 +1520,9 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack,
     videos = max(cfg.data.synthetic_videos // 2, 32)
     per_batch = max(1, 8 // cfg.data.clip_num or 1)
     forwards = -(-videos // per_batch)
-    want = {k: want.get(k, 0) * forwards for k in launches}
+    extra = extra or {}
+    want = {k: want.get(k, 0) * forwards + extra.get(k, 0)
+            for k in launches}
     if launches != want:
         raise AssertionError(f"{name}: launches {launches}, want {want} "
                              f"({forwards} forwards)")
@@ -1454,11 +1534,14 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack,
         raise AssertionError(f"{name}: run_test gave {sorted(res)}, "
                              f"n_videos {res['n_videos']}, want {videos}")
 
+    dataset = build_test_dataset(cfg)
+    calib = runner.calibration_clips(cfg, dataset) \
+        if cfg.model.quantize == "static" else None
     t0 = time.perf_counter()
-    batches = list(Loader(build_test_dataset(cfg), batch_size=per_batch,
+    batches = list(Loader(dataset, batch_size=per_batch,
                           num_workers=cfg.data.num_workers, drop_last=False))
     loader_s = time.perf_counter() - t0
-    model, _ = runner._build_model(cfg, arch, "cuda")
+    model, _ = runner._build_model(cfg, arch, "cuda", calib)
     score = runner.make_test_scorer(cfg, model, heads, "cuda")
     score(batches[0]["rgb"])
     torch.cuda.synchronize()
@@ -1470,20 +1553,14 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack,
     prof = _device_profile(torch, lambda: score(batches[0]["rgb"]))
     del model, score
 
-    probs = _scorer_probs(torch, cfg, arch, heads, batches[0]["rgb"],
-                          skipped_ok)
-    mode = cfg.model.action_fused
-    ref = probs["none", "float32"]
-    gate = []
-    for h in range(heads):
-        theirs = _rel_err(probs["none", "bfloat16"][h], ref[h])[1]
-        mine = _rel_err(probs[mode, "bfloat16"][h], ref[h])[1]
-        fp32 = _rel_err(probs[mode, "float32"][h], ref[h])[1]
-        gate.append(dict(head=names[h], fp32_rel=fp32, fp32_tol=LOGIT_TOL,
-                         bf16_rel=mine, plain_bf16_rel=theirs,
-                         bf16_tol=slack * theirs + LOGIT_TOL))
+    if gate is None:
+        rows = _mode_gate(torch, cfg, arch, heads, batches[0]["rgb"],
+                          skipped_ok, slack)
+    else:
+        rows = gate(cfg, arch, heads, batches[0]["rgb"], skipped_ok)
     clips = videos * cfg.data.clip_num
-    out = dict(arch=arch, heads=heads, mode=mode, videos=videos,
+    out = dict(arch=arch, heads=heads, mode=cfg.model.action_fused,
+               quantize=cfg.model.quantize, videos=videos,
                clips_per_video=cfg.data.clip_num,
                crop=cfg.data.crop_size, classes=cfg.model.num_classes,
                forwards=forwards, launches=launches,
@@ -1493,15 +1570,13 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack,
                scorer_alone_s=scorer_s,
                scorer_alone_clips_per_s=clips / scorer_s,
                scorer_call_traced={k: prof[k] for k in (
-                   "wall_ms", "device_busy_ms", "idle_share")},
-               loader_workers=cfg.data.num_workers, probs=gate)
+                   "wall_ms", "device_busy_ms", "idle_share",
+                   "top_device_ms")},
+               loader_workers=cfg.data.num_workers, probs=rows)
     print(f"{name} " + json.dumps(out), flush=True)
-    for g in gate:
-        if not (g["fp32_rel"] <= LOGIT_TOL and g["bf16_rel"] <= g["bf16_tol"]
-                and all(torch.isfinite(p).all() for p in probs[mode,
-                                                               "bfloat16"])):
-            raise AssertionError(f"{name}: {g['head']} probabilities, "
-                                 f"{mode} vs plain: {g}")
+    for g in rows:
+        if not g["ok"]:
+            raise AssertionError(f"{name}: {g['head']} probabilities: {g}")
     return out
 
 
@@ -2039,6 +2114,307 @@ def loop_test_mtmm_sd(torch, tmp, joint):
                         ("local_decoder.", "global_decoder."))
 
 
+# ---------------------------------------------------------------------------
+# the eleventh slice: int8 inference (QuantConv, calibration, int8_conv)
+# ---------------------------------------------------------------------------
+
+def _bits(torch, y):
+    """The raw bits of ``y`` (NHWC order), for a bitwise comparison."""
+    y = y.permute(0, 2, 3, 1).contiguous()
+    return y.view(torch.int16 if y.dtype == torch.bfloat16 else torch.int32)
+
+
+def _int8_operands(torch, gen, n, cin, cout, k, hw):
+    """Full-range codes (so the int32 sums reach their largest, ~7.4e7 at
+    K = 4608, where the conversion to f32 rounds) and positive scales."""
+    def codes(*shape):
+        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
+                             dtype=torch.int8).contiguous(
+                                 memory_format=torch.channels_last)
+    scale = torch.rand(cout, generator=gen, device="cuda") * 1e-4 + 1e-6
+    return codes(n, cin, hw, hw), codes(cout, cin, k, k), scale
+
+
+def check_int8(torch, i8, gen):
+    """``int8_conv`` against ``int8_conv_plain`` at the 15 site shapes of
+    INT8_SITES at the served batch's clips and at INT8_TPOOL, in bf16 and
+    f32 out: bitwise equal (the same integers, then the same f32 multiply
+    and rounding), each launch counted."""
+    out = []
+    shapes = [(site, VIDEOS * CLIPS * T) for site in INT8_SITES] + \
+        [(INT8_TPOOL, VIDEOS * CLIPS * T // 2)]
+    for (kind, cin, cout, k, stride, hw, _), n in shapes:
+        xq, wq, scale = _int8_operands(torch, gen, n, cin, cout, k, hw)
+        for dname in ("bfloat16", "float32"):
+            dtype = getattr(torch, dname)
+            before = i8.int8_conv.launches
+            got = i8.int8_conv(xq, wq, scale, stride, k // 2, dtype)
+            want = i8.int8_conv_plain(xq, wq, scale, stride, k // 2, dtype)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(got, want)
+            r = dict(kernel="int8_conv", site=kind, n=n, C=cin, F=cout, k=k,
+                     stride=stride, H=hw, dtype=dname, max_abs_err=err,
+                     max_rel_err=rel, shape=list(got.shape),
+                     bitwise=torch.equal(_bits(torch, got),
+                                         _bits(torch, want)))
+            out.append(r)
+            print(f"check int8_conv {kind:10s} n={n} {cin}->{cout} k={k} "
+                  f"s={stride} {hw}^2 {dname}: bitwise={r['bitwise']} "
+                  f"err={err:.3e}", flush=True)
+            if not r["bitwise"] or i8.int8_conv.launches != before + 1:
+                raise AssertionError(f"int8_conv differs from its plain "
+                                     f"version (or did not launch): {r}")
+            del got, want
+        del xq, wq, scale
+    return out
+
+
+def time_int8(torch, i8, gen):
+    """Per site shape of INT8_SITES at the served batch's clips, bf16 out:
+    the kernel (CUDA events back to back, and on the device alone with its
+    inputs cold in L2), its plain version and two yardsticks that are not
+    the same function: ``torch._int_mm`` (the int32 GEMM alone, no scale)
+    at the 1x1 stride-1 sites, the only ones one call covers, and the bf16
+    cuDNN conv of the same site, the float path the int8 one replaces.
+    Bound: the codes the conv needs and the weights read once, the scales
+    read and the bf16 output written once at 3.35 TB/s, beside 2 M N K
+    operations at the int8 peak; the same convs in bf16 (2 bytes an input
+    and a weight element, no scales) at the bf16 peak beside.  A 1x1
+    conv needs one input pixel an output pixel (a quarter of the input at
+    stride 2); a 3x3 one, pad 1, all of it."""
+    import torch.nn.functional as F
+
+    n = VIDEOS * CLIPS * T
+    rows_out = []
+    for kind, cin, cout, k, stride, hw, count in INT8_SITES:
+        xq, wq, scale = _int8_operands(torch, gen, n, cin, cout, k, hw)
+        ho = (hw + 2 * (k // 2) - k) // stride + 1
+        m, kk = n * ho * ho, k * k * cin
+        x_elems = m * cin if k == 1 else xq.numel()
+        nbytes = x_elems + wq.numel() + 4 * cout + 2 * m * cout
+        bf16_bytes = 2 * (x_elems + wq.numel() + m * cout)
+        t_bytes, t_ops = _bound_ms(nbytes, 2 * m * cout * kk, "int8")
+        xb = torch.randn(xq.shape, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        wb = torch.randn(wq.shape, generator=gen, device="cuda").to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+
+        def kernel():
+            return i8.int8_conv(xq, wq, scale, stride, k // 2)
+        r = dict(kernel="int8_conv", site=kind, C=cin, F=cout, k=k,
+                 stride=stride, H=hw, sites=count, M=m, K=kk, bytes=nbytes,
+                 bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
+                 bound_by="bytes" if t_bytes >= t_ops else "operations",
+                 bf16_bound_ms=max(_bound_ms(bf16_bytes, 2 * m * cout * kk,
+                                             "bfloat16")),
+                 ms=_time_ms(torch, kernel),
+                 plain_ms=_time_ms(torch, lambda: i8.int8_conv_plain(
+                     xq, wq, scale, stride, k // 2), reps=3),
+                 cudnn_bf16_ms=_time_ms(torch, lambda: F.conv2d(
+                     xb, wb, stride=stride, padding=k // 2)),
+                 int_mm_ms=None)
+        if k == 1 and stride == 1:
+            a = xq.permute(0, 2, 3, 1).reshape(-1, cin)
+            b = wq.reshape(cout, cin).t()
+            r["int_mm_ms"] = _time_ms(torch, lambda: torch._int_mm(a, b))
+        r["roofline_share"] = r["bound_ms"] / r["ms"]
+        r["device_ms"], r["device_ms_by_kernel"] = _device_times(torch,
+                                                                 kernel)
+        r["device_share"] = r["bound_ms"] / r["device_ms"]
+        rows_out.append(r)
+        lib = "-" if r["int_mm_ms"] is None else f"{r['int_mm_ms']:.4f}"
+        print(f"time int8_conv {kind:10s} {cin}->{cout} k={k} s={stride} "
+              f"{hw}^2 ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
+              f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"device_share={r['device_share']:.3f} "
+              f"plain={r['plain_ms']:.4f} int_mm={lib} "
+              f"cudnn_bf16={r['cudnn_bf16_ms']:.4f}", flush=True)
+        del xq, wq, scale, xb, wb
+    return rows_out
+
+
+def _int8_model(torch, seed, checkpoint, quantize):
+    """The serve model's weights (``checkpoint``) in the full-width TSN +
+    ACTION ResNet-50 ('mega') with int8 block convs ``quantize``, bf16."""
+    from ehgr_tpu_torch.models.tsn import variant
+
+    model = variant("tsn", num_class=CLASSES, num_segments=T,
+                    temporal="action", action_fused="mega",
+                    quantize=quantize, dtype=torch.bfloat16, device="cuda",
+                    generator=torch.Generator().manual_seed(seed))
+    model.load_state_dict(torch.load(checkpoint, map_location="cuda",
+                                     weights_only=True)["state_dict"])
+    return model.eval()
+
+
+@contextlib.contextmanager
+def _plain_int8():
+    """The int8 sites on ``int8_conv_plain`` in place of the kernel (the
+    name ``ops/quantize.py`` looks up at each call)."""
+    from ehgr_tpu_torch.ops import quantize
+    from ehgr_tpu_torch.ops.kernels.int8_conv import int8_conv_plain
+
+    kernel = quantize.int8_conv
+    quantize.int8_conv = int8_conv_plain
+    try:
+        yield
+    finally:
+        quantize.int8_conv = kernel
+
+
+def _int8_gates(torch, model, fmodel, frames):
+    """Gate 1: the kernel's probabilities against the same model on
+    ``int8_conv_plain`` (INT8_PLAIN_TOL).  Gate 2: the int8 logits against
+    the float bf16 model's, cosine over INT8_COS (JAX's own bar,
+    ``tests/test_quantize.py``); the top-1 agreement is printed."""
+    from ehgr_tpu_torch.eval.inference import make_score_fn
+
+    x = _clips(torch, frames)
+    with torch.inference_mode():
+        score = make_score_fn(model, device="cuda", crop_size=CROP)
+        probs = score(frames)
+        logits = model(x).float()
+        with _plain_int8():
+            plain = score(frames)
+        want = fmodel(x).float()
+    cos = ((logits * want).sum() / (logits.norm() * want.norm())).item()
+    out = dict(plain_max_abs=(probs - plain).abs().max().item(),
+               plain_tol=INT8_PLAIN_TOL, cosine=cos, cosine_bar=INT8_COS,
+               top1_agreement=(logits.argmax(-1) == want.argmax(-1))
+               .float().mean().item())
+    if not (out["plain_max_abs"] <= INT8_PLAIN_TOL and cos > INT8_COS and
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"int8 gates: {out}")
+    return out
+
+
+def int8_serve(torch, seed, checkpoint, batches, served):
+    """A main path: the scorer on the serve model's weights with int8
+    'static' block convs (``quantize='static'``), calibrated on the first
+    request batch (normalized at f32, run at bf16, as the runner
+    calibrates), over the request batches: 36 ``int8_conv`` launches and
+    16 + 16 ACTION a forward; its gates (``_int8_gates``) on every batch.
+    Then one batch in 'dynamic' under the same gates and launches."""
+    from ehgr_tpu_torch.ops.quantize import calibrate, sites
+
+    fmodel = _int8_model(torch, seed, checkpoint, False)
+    model = _int8_model(torch, seed, checkpoint, "static")
+    calibrate(model, [_clips(torch, batches[0][0])])
+    scales = [m.act_scale.item() for m in sites(model)]
+    if len(scales) != 36 or not all(s > 0 for s in scales):
+        raise AssertionError(f"int8_serve: act_scales {scales}")
+    out = serve(torch, model, batches, INT8_FORWARD, "int8_serve")
+    out["float_serve_clips_per_s"] = served["clips_per_s"]
+    out["act_scale_min_max"] = [min(scales), max(scales)]
+    out["gates"] = [_int8_gates(torch, model, fmodel, f) for f, _ in batches]
+    del model
+    dyn = _int8_model(torch, seed, checkpoint, "dynamic")
+    out["dynamic"] = serve(torch, dyn, batches[:1], INT8_FORWARD,
+                           "int8_serve_dynamic")
+    out["dynamic"]["gates"] = [_int8_gates(torch, dyn, fmodel,
+                                           batches[0][0])]
+    print("int8_serve_gates " + json.dumps(
+        dict(static=out["gates"], dynamic=out["dynamic"]["gates"])),
+        flush=True)
+    return out
+
+
+def int8_test(torch, seed, checkpoint, ego):
+    """A main path: ``run_test`` on the config ``cli.test --preset
+    ego_baseline --synthetic --action_fused mega --quantize static`` makes,
+    on test_ego's videos and weights (the same config but for
+    ``quantize``): 2 calibration forwards (16 + 16 ACTION launches each),
+    then 36 ``int8_conv`` and 16 + 16 ACTION launches a forward; the 36
+    ``act_scale``s of run_test's model all > 0; the first batch's
+    probabilities, kernel against ``int8_conv_plain``, within test_ego's
+    gate of this run.  Then ``cli.test --quantize dynamic`` through its
+    ``main`` on the same weights: 36 + 16 + 16 launches a forward, no
+    calibration."""
+    import dataclasses
+
+    from ehgr_tpu_torch.cli import test as cli_test
+    from ehgr_tpu_torch.configs import config_from_args
+    from ehgr_tpu_torch.eval import runner
+    from ehgr_tpu_torch.ops.quantize import sites
+
+    flags = ["--preset", "ego_baseline", "--synthetic", "--action_fused",
+             "mega", "--synthetic_videos", str(RUN_VIDEOS),
+             "--checkpoint_path", checkpoint]
+    cfg = config_from_args(flags + ["--quantize", "static"])
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               synthetic_task="motion"),
+                      run=dataclasses.replace(cfg.run, seed=seed))
+    if cfg.replace(model=dataclasses.replace(cfg.model, quantize=False)) != \
+            test_config("ego_baseline", checkpoint, "mega", seed):
+        raise AssertionError("int8_test: not test_ego's configuration")
+    tol = {d: max(g[f"{d}_tol"] for g in ego["probs"])
+           for d in ("fp32", "bf16")}
+
+    built = []
+
+    def gate(cfg, arch, heads, frames, skipped_ok):
+        model = built[0][0]
+        rows = []
+        for dname, key in (("bfloat16", "bf16"), ("float32", "fp32")):
+            model.dtype = getattr(torch, dname)
+            cd = cfg.replace(model=dataclasses.replace(cfg.model,
+                                                       dtype=dname))
+            score = runner.make_test_scorer(cd, model, heads, "cuda")
+            got = score(frames)[0]
+            with _plain_int8():
+                want = score(frames)[0]
+            rel = _rel_err(got, want)[1]
+            rows.append(dict(head="final", dtype=dname, rel=rel,
+                             tol=tol[key], ok=bool(
+                                 rel <= tol[key] and
+                                 torch.isfinite(got).all())))
+        return rows
+
+    inner = runner._build_model
+
+    def capture(cfg, arch, device=None, calib_batches=None):
+        out = inner(cfg, arch, device, calib_batches)
+        built.append((out[0], calib_batches))
+        return out
+    runner._build_model = capture
+    try:
+        out = run_protocol(torch, "int8_test", cfg, "tsn", 1, INT8_FORWARD,
+                           BF16_SLACK, gate=gate,
+                           extra={k: v * CALIB_FORWARDS
+                                  for k, v in MEGA_FORWARD.items()})
+    finally:
+        runner._build_model = inner
+    model, calib = built[0]
+    scales = {n: m.act_scale.item() for n, m in model.named_modules()
+              if m in sites(model)}
+    del built, model
+    if len(scales) != 36 or not all(v > 0 for v in scales.values()):
+        raise AssertionError(f"int8_test: act_scales {scales}")
+    out["act_scales"] = scales
+    out["calibration_forwards"] = len(calib)
+    out["test_ego_clips_per_s"] = ego["clips_per_s"]
+    out["test_ego_videos_per_s"] = ego["videos_per_s"]
+
+    flags += ["--quantize", "dynamic"]
+    dcfg = config_from_args(flags)
+    videos = max(dcfg.data.synthetic_videos // 2, 32)
+    forwards = -(-videos // max(1, 8 // dcfg.data.clip_num or 1))
+    reset_counters()
+    t0 = time.perf_counter()
+    res = cli_test.main(flags + ["--device", "cuda"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    want = {k: INT8_FORWARD.get(k, 0) * forwards for k in launches}
+    if launches != want or res["n_videos"] != videos:
+        raise AssertionError(f"int8_test dynamic: launches {launches}, want "
+                             f"{want}; {res}")
+    out["dynamic"] = dict(launches=launches, results=res, seconds=wall,
+                          clips_per_s=videos * dcfg.data.clip_num / wall)
+    print("int8_test_dynamic " + json.dumps(out["dynamic"]), flush=True)
+    return out
+
+
 def _device_profile(torch, fn):
     """Wall time and device time by kernel name of one call of ``fn``
     (torch.profiler), ``fn`` run once before to warm up."""
@@ -2514,6 +2890,46 @@ def kernel_table(checks, timings, launches):
                                   "device_ms_forward", "device_ms_reverse",
                                   "roofline_share", "device_share")}
                for r in t]))
+    t = [r for r in timings if r["kernel"] == "int8_conv"]
+    c = [r for r in checks if r["kernel"] == "int8_conv"]
+    tot = {k: sum(r[k] * r["sites"] for r in t)
+           for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
+                     "bf16_bound_ms", "device_ms", "cudnn_bf16_ms")}
+    by_path = {p: v["int8_conv"] for p, v in launches.items()
+               if v.get("int8_conv")}
+    table.append(dict(
+        name="int8_conv", route="cuda", source=csrc + "int8_conv.cu",
+        replaces="none: no pl.pallas_call; the XLA int8 conv of "
+        "ehgr_tpu/ops/quantize.py:121",
+        launches=sum(by_path.values()), launches_by_path=by_path,
+        max_abs_err=max(r["max_abs_err"] for r in c
+                        if r["dtype"] == "bfloat16"),
+        max_abs_err_fp32=max(r["max_abs_err"] for r in c
+                             if r["dtype"] == "float32"),
+        bitwise=all(r["bitwise"] for r in c),
+        ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+        bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+        else "operations",
+        library_ms=None,
+        library_note="no PyTorch call computes an int8 conv on CUDA; "
+        "int_mm_ms: torch._int_mm (int32 GEMM, no scale) at the 1x1 "
+        "stride-1 sites alone; cudnn_bf16_ms: the float bf16 conv of every "
+        "site",
+        int_mm_ms=sum(r["int_mm_ms"] * r["sites"] for r in t
+                      if r["int_mm_ms"] is not None),
+        int_mm_sites_ms=sum(r["ms"] * r["sites"] for r in t
+                            if r["int_mm_ms"] is not None),
+        cudnn_bf16_ms=tot["cudnn_bf16_ms"],
+        bf16_bound_ms=tot["bf16_bound_ms"], device_ms=tot["device_ms"],
+        device_share=tot["bound_ms"] / tot["device_ms"],
+        per="forward of the served batch, 20 clips (36 sites)",
+        sites=[{k: r[k] for k in ("site", "C", "F", "k", "stride", "H",
+                                  "sites", "ms", "device_ms",
+                                  "device_ms_by_kernel", "plain_ms",
+                                  "bound_ms", "bound_by", "bf16_bound_ms",
+                                  "int_mm_ms", "cudnn_bf16_ms",
+                                  "roofline_share", "device_share")}
+               for r in t]))
     return table
 
 
@@ -2564,6 +2980,7 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from ehgr_tpu_torch.ops.kernels import action_fused as fused
     from ehgr_tpu_torch.ops.kernels import action_mega as mega
+    from ehgr_tpu_torch.ops.kernels import int8_conv as i8
     from ehgr_tpu_torch.ops.kernels import shift as shk
     from ehgr_tpu_torch.ops.kernels import tsm_shift as tk
     from ehgr_tpu_torch.ops.kernels.build import build, load
@@ -2575,7 +2992,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     libs = ("action_mega", "action_stats", "action_apply", "shift",
-            "shift_bwd", "tsm_shift")
+            "shift_bwd", "tsm_shift", "int8_conv")
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         list(pool.map(lambda name: build(name, verbose=True), libs))
     for name in libs:                              # -Xptxas -v printed
@@ -2604,6 +3021,7 @@ def main(argv=None) -> int:
     checks += phase("check_tsm", check_tsm, torch, tk, gen)
     checks += phase("check_prologue", check_prologue, torch, fused, mega, n,
                     gen)
+    checks += phase("int8_kernels", check_int8, torch, i8, gen)
     batches = make_batches(args.seed)
 
     # the serving path: the ACTION scorer ('mega'); its weights also serve
@@ -2618,6 +3036,9 @@ def main(argv=None) -> int:
     del plain
     prof = profile_forward(torch, model, batches[0][0])
     del model
+    # int8 inference: the serve model's weights with int8 block convs
+    i8_served = phase("int8_serve", int8_serve, torch, args.seed, ego_pth,
+                      batches, served)
 
     # PR 2's path: the Stage-1 train step; its weights seed Stage 2
     trained, warm = phase("train", train, torch, args.seed)
@@ -2658,6 +3079,7 @@ def main(argv=None) -> int:
 
     # the test protocol: host data layer, run_test, 10 clips a forward
     ego = phase("test_ego", test_ego, torch, args.seed, ego_pth)
+    i8_test = phase("int8_test", int8_test, torch, args.seed, ego_pth, ego)
     nv_sd = phase("test_nv_sd", test_nv_sd, torch, args.seed,
                   os.path.join(tmp, "nv_sd.pth"))
 
@@ -2686,7 +3108,8 @@ def main(argv=None) -> int:
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
                     time_shift(torch, shk, gen) + time_tsm(torch, tk, gen) +
-                    time_prologue(torch, fused, mega, n, gen))
+                    time_prologue(torch, fused, mega, n, gen) +
+                    time_int8(torch, i8, gen))
     print("phase_seconds " + json.dumps(phases), flush=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2703,7 +3126,10 @@ def main(argv=None) -> int:
              "loop_test_sd": l_test_sd, "joint_train": joint,
              "tpool_train": tp["train"],
              "tpool_serve": dict(launches=tp["forward_launches"]),
-             "loop_mtmm_sd": l_joint, "loop_test_mtmm_sd": l_test_joint}
+             "loop_mtmm_sd": l_joint, "loop_test_mtmm_sd": l_test_joint,
+             "int8_serve": i8_served,
+             "int8_serve_dynamic": i8_served["dynamic"],
+             "int8_test": i8_test, "int8_test_dynamic": i8_test["dynamic"]}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -2721,6 +3147,7 @@ def main(argv=None) -> int:
                       "joint_parity": joint_parity, "tpool": tp,
                       "loop_mtmm_sd": l_joint,
                       "loop_test_mtmm_sd": l_test_joint,
+                      "int8_serve": i8_served, "int8_test": i8_test,
                       "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)

@@ -230,8 +230,8 @@ def config_from_args(argv: Sequence[str],
                    help="stages carrying ACTION (placement ablation)")
     p.add_argument("--quantize", default=None,
                    choices=["dynamic", "static"],
-                   help="int8 inference (not ported: ROADMAP queue 1, "
-                        "item 5)")
+                   help="int8 inference for the backbone's block convs "
+                        "(the test runner; trainers train float)")
     p.add_argument("--num_classes", type=int, default=None)
     p.add_argument("--run_dir", default=None)
     p.add_argument("--synthetic_videos", type=int, default=None)
@@ -242,10 +242,6 @@ def config_from_args(argv: Sequence[str],
     p.add_argument("--accum_steps", type=int, default=None,
                    help="gradient accumulation: microbatches per step")
     args = p.parse_args(argv)
-    if args.quantize is not None:
-        raise NotImplementedError(
-            f"--quantize {args.quantize}: int8 inference is not ported yet "
-            "(ROADMAP: queue 1, item 5)")
     if args.vit is not None:
         raise NotImplementedError(
             "--vit: VideoMAE is not ported yet (ROADMAP: queue 1, item 6)")
@@ -269,7 +265,7 @@ def config_from_args(argv: Sequence[str],
     m = upd(m, base_model=args.base_model, shift_div=args.shift_div,
             modal=args.modal, dropout=args.dropout,
             num_segments=args.clip_len, action_fused=args.action_fused,
-            num_classes=args.num_classes,
+            quantize=args.quantize, num_classes=args.num_classes,
             action_stages=(tuple(args.action_stages)
                            if args.action_stages else None))
     o = upd(o, lr=args.lr, weight_decay=args.wd, epochs=args.epochs,

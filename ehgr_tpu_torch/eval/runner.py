@@ -9,6 +9,15 @@ head, and with ``heads=4`` the SD model's three exits).
 
 Batches come from the host loader as uint8; on the device they are
 normalized at ``cfg.model.dtype``, run through the model, and voted.
+
+``cfg.model.quantize`` ('dynamic' or 'static') runs the backbone's block
+convs in int8 (``ops/quantize.py``); 'static' first calibrates on the first
+two batches of the test loader itself, as the JAX runner does.
+
+The model is built by ``build_model``, which applies the config's
+``temporal_pool``, ``before_softmax`` and ``modal``, so a checkpoint is
+tested as it was trained.  The JAX runner builds ``variant`` without them
+(a deliberate difference, README "Known deltas").
 """
 
 from __future__ import annotations
@@ -27,22 +36,60 @@ from ehgr_tpu_torch.eval.metrics import ConfusionMatrix, topk_correct
 from ehgr_tpu_torch.models.factory import build_model
 from ehgr_tpu_torch.models.tsn import TSN
 from ehgr_tpu_torch.ops.preprocess_device import normalize_clip
+from ehgr_tpu_torch.ops.quantize import calibrate
 from ehgr_tpu_torch.train.checkpoints import load_for_model
 
 
-def _build_model(cfg: Config, arch: str,
-                 device: DeviceLike = None) -> Tuple[TSN, List[str]]:
+def calibration_clips(cfg: Config, dataset) -> List[np.ndarray]:
+    """The clips int8 'static' calibrates on: the first two batches of an
+    unshuffled one-thread loader over ``dataset`` (the one the test then
+    scores, so its draws come first), each reshaped to uint8
+    ``[clips, T, H, W, 3]``."""
+    loader = Loader(dataset, batch_size=max(1, 8 // cfg.data.clip_num or 1),
+                    shuffle=False, num_workers=0, drop_last=False)
+    out = []
+    t = cfg.model.num_segments
+    for b in loader:
+        rgb = np.asarray(b["rgb"])              # [V, K, crops*T, H, W, 3]
+        out.append(rgb.reshape((-1, t) + rgb.shape[3:]))
+        if len(out) == 2:
+            break
+    return out
+
+
+def _build_model(cfg: Config, arch: str, device: DeviceLike = None,
+                 calib_batches=None) -> Tuple[TSN, List[str]]:
     """``arch`` built from ``cfg`` on ``device`` (default CUDA) in eval
-    mode, with the weights of ``cfg.run.checkpoint_path`` when it is set;
-    returns the model and the checkpoint's keys it did not take."""
-    model = build_model(cfg.model, arch, resolve_device(device))
+    mode, with the weights of ``cfg.run.checkpoint_path`` when it is set
+    and ``cfg.model.quantize``; returns the model and the checkpoint's keys
+    it did not take.  int8 'static' is calibrated on ``calib_batches``
+    (uint8 clips ``[N, T, H, W, 3]``, normalized at float32; the model
+    computes in its own dtype), or without them on standard-normal noise
+    ``(8, T, crop, crop, 3)`` from ``cfg.run.seed``, with JAX's
+    warning."""
+    dev = resolve_device(device)
+    log = logging.getLogger(__name__)
+    model = build_model(cfg.model, arch, dev, quantize=cfg.model.quantize)
     skipped = []
     if cfg.run.checkpoint_path:
         skipped = load_for_model(cfg.run.checkpoint_path, model)
         if skipped:
-            logging.getLogger(__name__).warning(
-                "checkpoint keys not loaded: %s", skipped)
-    return model.eval(), skipped
+            log.warning("checkpoint keys not loaded: %s", skipped)
+    model.eval()
+    if cfg.model.quantize == "static":
+        if calib_batches:
+            xs = [normalize_clip(torch.as_tensor(b).to(dev), cfg.data.mean,
+                                 cfg.data.std, dtype=torch.float32)
+                  for b in calib_batches]
+        else:
+            log.warning("int8 static: no calibration clips provided — "
+                        "scales are noise-calibrated; accuracy may degrade")
+            rng = np.random.default_rng(cfg.run.seed)
+            xs = [torch.as_tensor(rng.standard_normal(
+                (8, cfg.model.num_segments, cfg.data.crop_size,
+                 cfg.data.crop_size, 3)), dtype=torch.float32, device=dev)]
+        calibrate(model, xs)
+    return model, skipped
 
 
 def make_test_scorer(cfg: Config, model: torch.nn.Module, heads: int = 1,
@@ -84,11 +131,14 @@ def run_test(cfg: Config, arch: str = "tsn", heads: int = 1,
     (default CUDA).  ``heads=4`` scores the SD model's final head and its
     three exits (``test_sd.py``).  Returns ``n_videos``, ``final_top1/5``,
     ``mid{i}_top1/5`` and ``confusion`` (a ``ConfusionMatrix`` a head),
-    the keys of ``ehgr_tpu.eval.runner.run_test``."""
+    the keys of ``ehgr_tpu.eval.runner.run_test``.  int8 'static'
+    calibrates on ``calibration_clips`` first."""
     log = logging.getLogger(__name__)
     dev = resolve_device(device)
     dataset = build_test_dataset(cfg)
-    model, _ = _build_model(cfg, arch, dev)
+    calib = calibration_clips(cfg, dataset) \
+        if cfg.model.quantize == "static" else None
+    model, _ = _build_model(cfg, arch, dev, calib)
     loader = Loader(dataset, batch_size=max(1, 8 // cfg.data.clip_num or 1),
                     shuffle=False, num_workers=cfg.data.num_workers,
                     drop_last=False)

@@ -4,8 +4,11 @@ ACTION / decoder / SD-exit / text-head subset the port has).
 
 Input is the flax variable tree flattened to ``{path-tuple: array}``, as
 ``flax.traverse_util.flatten_dict`` gives it (first element the collection:
-``params`` or ``batch_stats``; others are skipped).  Each path is rewritten
-to its torch key by name rules and each tensor transposed by rank:
+``params`` or ``batch_stats``, and ``quant``, the int8 sites' calibrated
+``act_scale``, which goes to the non-persistent buffers of the same name
+and never into a ``state_dict``; others are skipped).  Each path is
+rewritten to its torch key by name rules and each tensor transposed by
+rank:
 
   conv2d kernel [kh,kw,I,O]       -> [O,I,kh,kw]   (also depthwise)
   conv3d kernel [kt,kh,kw,I,O]    -> [O,I,kt,kh,kw]
@@ -137,8 +140,19 @@ def state_dict_from_jax(flat: Mapping[Tuple[str, ...], np.ndarray]
 
 def load_jax_variables(model: nn.Module,
                        flat: Mapping[Tuple[str, ...], np.ndarray]) -> None:
-    """Load converted JAX weights into ``model`` with ``strict=True``."""
+    """Load converted JAX weights into ``model`` with ``strict=True``, and
+    each calibrated ``act_scale`` of ``flat`` (the ``quant`` collection)
+    into the int8 site of the same name, which must exist."""
     model.load_state_dict(state_dict_from_jax(flat), strict=True)
+    buffers = dict(model.named_buffers())
+    with torch.no_grad():
+        for path, leaf in flat.items():
+            if path[0] != "quant":
+                continue
+            key = torch_key(tuple(path[1:]))
+            if key not in buffers:
+                raise KeyError(f"{key}: no int8 site of that name")
+            buffers[key].fill_(float(np.float32(leaf)))
 
 
 def convert_train_state(flat: Mapping[Tuple[str, ...], np.ndarray]

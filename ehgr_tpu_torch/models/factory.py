@@ -15,17 +15,16 @@ from ehgr_tpu_torch.models.tsn import TSN, variant
 
 def build_model(m: ModelConfig, arch: Optional[str] = None,
                 device: DeviceLike = None,
-                generator: Optional[torch.Generator] = None) -> TSN:
+                generator: Optional[torch.Generator] = None,
+                quantize=False) -> TSN:
     """``m.arch`` (or ``arch``) built from ``m`` on ``device`` (default
     CUDA), weights drawn from ``generator``, with ``m.modal``,
     ``m.temporal_pool`` and ``m.before_softmax`` as the JAX ``build_model``
     applies them.  ``m.consensus_type`` is not passed, as the JAX
     ``build_model`` does not pass it: the model keeps ``'avg'`` (``variant``
-    takes the option).  Quantized inference is not ported and raises."""
-    if m.quantize:
-        raise NotImplementedError(
-            f"quantize={m.quantize!r}: int8 inference is not ported yet "
-            "(ROADMAP: queue 1, item 5)")
+    takes the option).  Nor is ``m.quantize``: the trainers build through
+    here and train float, as JAX's do; the test runner, which applies int8
+    inference, passes it as ``quantize``."""
     return variant(arch or m.arch, num_class=m.num_classes,
                    num_segments=m.num_segments, base_model=m.base_model,
                    temporal=(m.temporal_module if m.is_shift else "none"),
@@ -34,6 +33,6 @@ def build_model(m: ModelConfig, arch: Optional[str] = None,
                    action_fused=(m.action_fused or None),
                    action_stages=tuple(m.action_stages), remat=m.remat,
                    temporal_pool=m.temporal_pool,
-                   before_softmax=m.before_softmax,
+                   before_softmax=m.before_softmax, quantize=quantize,
                    dtype=getattr(torch, m.dtype), device=device,
                    generator=generator)

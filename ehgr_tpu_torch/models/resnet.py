@@ -4,7 +4,10 @@
 torchvision ResNet v1 (stride on ``conv2``, 1x1 downsample); ``temporal``
 decides what ``conv1`` of each bottleneck is at build time; ``partial_bn``
 keeps every BN but the stem's on its running statistics in training,
-the ACTION ``p3_bn1`` included; ``remat`` recomputes each bottleneck's
+the ACTION ``p3_bn1`` included; ``quantize`` makes the block convs int8
+sites at eval (``ops/quantize.py``): ``conv2``, ``conv3``, the downsample
+conv and a plain ``conv1`` (the ACTION and TSM ``conv1`` stay float, and so
+do the stem and the heads); ``remat`` recomputes each bottleneck's
 forward in the backward pass instead of keeping its activations (the JAX
 ``nn.remat(Bottleneck)``); ``temporal_pool`` max-pools T by 2 after
 stage 2, so the temporal modules of stages 3-4 see T/2 frames.  Module
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from ehgr_tpu_torch.models.layers import Conv2d
 from ehgr_tpu_torch.models.norm import BatchNorm
 from ehgr_tpu_torch.ops.action import ActionConv, TSMConv
+from ehgr_tpu_torch.ops.quantize import QuantConv
 from ehgr_tpu_torch.ops.temporal_shift import temporal_pool as _tpool
 
 STAGE_SIZES = {
@@ -34,15 +38,25 @@ STAGE_SIZES = {
 
 
 class Bottleneck(nn.Module):
-    """torchvision Bottleneck (expansion 4) with a temporal ``conv1``."""
+    """torchvision Bottleneck (expansion 4) with a temporal ``conv1``;
+    ``quantize`` (False, True = ``'dynamic'``, ``'dynamic'``, ``'static'``
+    or ``'calib'``) builds its int8 sites as ``QuantConv``."""
 
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
                  has_downsample: bool = False, temporal: str = "none",
                  n_segment: int = 8, shift_div: int = 8, action_fused=None,
-                 bn_frozen: bool = True, device=None):
+                 bn_frozen: bool = True, quantize=False, device=None):
         super().__init__()
         kw = dict(bias=False, device=device)
         bn = dict(frozen=bn_frozen, device=device)
+        if quantize:
+            mode = "dynamic" if quantize is True else str(quantize)
+
+            def conv(*a, **k):
+                return QuantConv(*a, quantize=mode, device=device, **k)
+        else:
+            def conv(*a, **k):
+                return Conv2d(*a, **kw, **k)
         if temporal == "action":
             self.conv1 = ActionConv(in_planes, planes, n_segment,
                                     shift_div=shift_div, fused=action_fused,
@@ -51,17 +65,17 @@ class Bottleneck(nn.Module):
             self.conv1 = TSMConv(in_planes, planes, n_segment,
                                  shift_div=shift_div, device=device)
         elif temporal == "none":
-            self.conv1 = Conv2d(in_planes, planes, 1, **kw)
+            self.conv1 = conv(in_planes, planes, 1)
         else:
             raise ValueError(f"unknown temporal module {temporal!r}")
         self.bn1 = BatchNorm(planes, **bn)
         # explicit pad 1 on the strided 3x3, torch's own semantics
-        self.conv2 = Conv2d(planes, planes, 3, stride=stride, padding=1, **kw)
+        self.conv2 = conv(planes, planes, 3, stride=stride, padding=1)
         self.bn2 = BatchNorm(planes, **bn)
-        self.conv3 = Conv2d(planes, planes * 4, 1, **kw)
+        self.conv3 = conv(planes, planes * 4, 1)
         self.bn3 = BatchNorm(planes * 4, **bn)
         self.downsample = nn.Sequential(
-            Conv2d(in_planes, planes * 4, 1, stride=stride, **kw),
+            conv(in_planes, planes * 4, 1, stride=stride),
             BatchNorm(planes * 4, **bn)) if has_downsample else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -103,7 +117,8 @@ class ResNetBackbone(nn.Module):
     ``remat`` takes effect where autograd records (training).
     ``temporal_pool``: after stage 2 (its tap keeps T frames) the frames of
     each clip are max-pooled by 2 (kernel 3, padding 1), and every
-    temporal module of stages 3-4 is built for ``n_segment // 2``."""
+    temporal module of stages 3-4 is built for ``n_segment // 2``.
+    ``quantize``: each bottleneck's int8 sites (see ``Bottleneck``)."""
 
     def __init__(self, stage_sizes: Sequence[int] = (3, 4, 6, 3),
                  temporal: str = "action", n_segment: int = 8,
@@ -111,7 +126,7 @@ class ResNetBackbone(nn.Module):
                  action_stages: Sequence[int] = (1, 2, 3, 4),
                  partial_bn: bool = True, stages: int = 4,
                  remat: bool = False, temporal_pool: bool = False,
-                 device=None):
+                 quantize=False, device=None):
         super().__init__()
         self.stages = stages
         self.remat = remat
@@ -135,7 +150,7 @@ class ResNetBackbone(nn.Module):
                                           i in action_stages) else "none",
                     n_segment=seg, shift_div=shift_div,
                     action_fused=action_fused, bn_frozen=partial_bn,
-                    device=device))
+                    quantize=quantize, device=device))
                 in_planes = p * 4
             setattr(self, f"layer{i}", nn.Sequential(*blocks))
 

@@ -64,7 +64,8 @@ class TSN(nn.Module):
     ``partial_bn`` keeps every backbone BN but the stem's on its running
     statistics in training; ``dropout`` acts on the pooled feature in
     training, drawn from the ``generator`` passed to ``forward``.
-    ``remat`` recomputes each bottleneck in the backward pass (see
+    ``remat`` recomputes each bottleneck in the backward pass and
+    ``quantize`` makes its block convs int8 sites at eval (see
     ``ResNetBackbone``)."""
 
     def __init__(self, num_class: int, num_segments: int,
@@ -75,7 +76,7 @@ class TSN(nn.Module):
                  truncate_at: int = 0, action_fused: Any = None,
                  action_stages=(1, 2, 3, 4), remat: bool = False,
                  consensus_type: str = "avg", before_softmax: bool = True,
-                 temporal_pool: bool = False,
+                 temporal_pool: bool = False, quantize: Any = False,
                  dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None,
                  generator: Optional[torch.Generator] = None):
@@ -95,7 +96,7 @@ class TSN(nn.Module):
             shift_div=shift_div, action_fused=action_fused,
             action_stages=action_stages, partial_bn=partial_bn,
             stages=truncate_at or 4, remat=remat,
-            temporal_pool=temporal_pool, device=dev)
+            temporal_pool=temporal_pool, quantize=quantize, device=dev)
         width = _FEATURES[base_model]
         self.exits = (truncate_at,) if truncate_at else \
             (1, 2, 3) if with_sd else ()
@@ -193,12 +194,14 @@ def variant(arch: str, num_class: int, num_segments: int,
             action_fused: Any = None, action_stages: Any = (1, 2, 3, 4),
             remat: bool = False, consensus_type: str = "avg",
             before_softmax: bool = True, temporal_pool: bool = False,
-            dtype: torch.dtype = torch.float32, device: DeviceLike = None,
+            quantize: Any = False, dtype: torch.dtype = torch.float32,
+            device: DeviceLike = None,
             generator: Optional[torch.Generator] = None) -> TSN:
     """Build the model surface ``arch`` (``tsn``, ``tsn_mtmm``, ``tsn_sd``,
     ``tsn_mtmm_sd`` with the heads of ``modal``, which no other arch reads,
     and ``tsn_middle1/2/3``), with the TSN options ``consensus_type``,
-    ``before_softmax`` and ``temporal_pool``."""
+    ``before_softmax`` and ``temporal_pool`` and the int8 mode
+    ``quantize``."""
     if arch not in ("tsn", "tsn_mtmm", "tsn_sd", "tsn_mtmm_sd") and \
             arch not in _MIDDLE:
         raise ValueError(f"unknown arch: {arch}")
@@ -211,5 +214,5 @@ def variant(arch: str, num_class: int, num_segments: int,
                truncate_at=_MIDDLE.get(arch, 0), action_fused=action_fused,
                action_stages=tuple(action_stages), remat=remat,
                consensus_type=consensus_type, before_softmax=before_softmax,
-               temporal_pool=temporal_pool, dtype=dtype, device=device,
-               generator=generator)
+               temporal_pool=temporal_pool, quantize=quantize, dtype=dtype,
+               device=device, generator=generator)

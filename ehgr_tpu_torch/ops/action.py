@@ -17,7 +17,10 @@ gate statistics and the ME squeeze), its tail in PyTorch.  In training, mode
 ``'vjp'`` runs the gate block as one autograd region on the kernels
 (``ops/action_vjp.py``); the other modes take plain autograd of the
 formulation above, as the JAX package does (``'mega'`` and ``'prologue'``
-are eval formulations).  Submodule names are the reference's
+are eval formulations).  ``quantize='static'`` / ``'calib'`` is the
+opt-in int8 wrapped 1x1 (``ops/quantize.py``), at eval in the plain and
+prologue formulations; ``'mega'`` and training ignore it, as in the JAX
+package, whose ResNet leaves it off.  Submodule names are the reference's
 torch keys (``action_shift``, ``action_p1_conv1``, ..., ``net``), which
 ``export_state_dict`` emits, so converted JAX weights load strictly.
 Weights are cast to the input's dtype at use, as flax does.
@@ -37,6 +40,8 @@ from ehgr_tpu_torch.ops.kernels.action_mega import (action_apply,
                                                     action_stats,
                                                     ste_stencil)
 from ehgr_tpu_torch.ops.kernels.tsm_shift import TsmShift
+from ehgr_tpu_torch.ops.quantize import (MIN_SCALE, WeightCodes,
+                                         int8_forward, record_amax)
 from ehgr_tpu_torch.ops.temporal_shift import learnable_shift, tsm_shift_init
 
 _MODES = {None: "none", False: "none", "none": "none", "vjp": "vjp",
@@ -73,15 +78,25 @@ class ActionConv(nn.Module):
     ``ActionRegion`` (the kernels forward, a hand-structured backward) and
     every other mode plain autograd.
     ``bn_frozen`` keeps the ME branch's BN on its running statistics in
-    training (partial BN).  ``features=0`` is the gate-only ``ActionGate``."""
+    training (partial BN).  ``features=0`` is the gate-only ``ActionGate``.
+    ``quantize`` (False, ``'static'`` or ``'calib'``): the wrapped conv's
+    int8 path at eval outside ``'mega'``, with its per-tensor scale of the
+    gated sum in the non-persistent buffer ``act_scale``."""
 
     def __init__(self, in_channels: int, features: int, n_segment: int,
                  shift_div: int = 8, fused=None, bn_frozen: bool = True,
-                 device=None):
+                 quantize=False, device=None):
         super().__init__()
         if fused not in _MODES:
             raise ValueError(f"unknown ActionConv mode {fused!r}")
+        if quantize not in (False, None, "static", "calib"):
+            raise ValueError(f"unknown ActionConv quantize {quantize!r}")
         self.mode = _MODES[fused]
+        self.quantize = quantize or False
+        if self.quantize:
+            self.register_buffer("act_scale", torch.zeros((), device=device),
+                                 persistent=False)
+            self.codes = WeightCodes()
         c, cr = in_channels, in_channels // 16
         self.features = features
         self.n_segment = n_segment
@@ -157,6 +172,13 @@ class ActionConv(nn.Module):
         gated = xs * (g1 + g2[:, :, None, :] + g3[:, :, None, :]) + 3.0 * xs
         if self.features == 0:                                  # ActionGate
             return _nchw(gated, nt, h, w)
+        if self.quantize == "calib" and not self.training:
+            record_amax(self.act_scale, gated)
+        elif self.quantize == "static" and not self.training:
+            return int8_forward(_nchw(gated, nt, h, w),
+                                self.codes(self.net.weight),
+                                torch.clamp_min(self.act_scale, MIN_SCALE),
+                                1, 0)
         out = gated @ self.net.weight[:, :, 0, 0].t().to(dt)
         return _nchw(out, nt, h, w)
 

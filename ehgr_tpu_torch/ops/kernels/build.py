@@ -17,7 +17,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
@@ -85,11 +85,18 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "ehgr_shift_bwd_strip": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                                  _I, _I, _I, _P],
     },
+    "int8_conv": {
+        # dtype (of out), x, w, scale, out, n, h, w, cin, cout, kh, kw,
+        # stride, pad, ho, wo, stream
+        "ehgr_int8_conv": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _P],
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
-# dtype argument of every entry point
+# dtype argument of every entry point (of its output, where the inputs are
+# int8)
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -155,11 +162,13 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def check_operands(name: str, x4: torch.Tensor,
+                   dtypes: Tuple[torch.dtype, ...] = tuple(DTYPE_CODE),
                    **operands: torch.Tensor) -> None:
-    """Same device and dtype (fp32 or bf16) for every operand, each
-    contiguous, with the shapes the caller already asserted."""
-    if x4.dtype not in DTYPE_CODE:
-        raise TypeError(f"{name}: dtype {x4.dtype} (fp32 or bf16 only)")
+    """Same device and dtype (one of ``dtypes``: fp32 or bf16 unless the
+    caller names others) for every operand, each contiguous, with the
+    shapes the caller already asserted."""
+    if x4.dtype not in dtypes:
+        raise TypeError(f"{name}: dtype {x4.dtype} (one of {dtypes})")
     for k, v in dict(x4=x4, **operands).items():
         if v.dtype != x4.dtype or v.device != x4.device:
             raise TypeError(f"{name}: {k} is {v.dtype} on {v.device}, x4 is "

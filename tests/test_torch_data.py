@@ -447,8 +447,18 @@ class TestConfigs:
                                       ["--quantize", "dynamic"],
                                       ["--vit", "8", "1", "2"]])
     def test_flags_not_ported_raise(self, argv):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pc.config_from_args(argv)
+        """``--vit`` (VideoMAE) is not ported and raises; ``--quantize``
+        is: its config is the JAX parser's, every field."""
+        if argv[0] == "--vit":
+            with pytest.raises(NotImplementedError, match="ROADMAP"):
+                pc.config_from_args(argv)
+            return
+        got, want = pc.config_from_args(argv), jc.config_from_args(argv)
+        assert got.model.quantize == want.model.quantize == argv[1]
+        for part in ("data", "model", "optim", "loss", "run"):
+            g = dataclasses.asdict(getattr(got, part))
+            w = dataclasses.asdict(getattr(want, part))
+            assert g == {k: w[k] for k in g}, part
 
 
 def test_runner_imports_no_jax_pil_or_pandas():

@@ -18,7 +18,7 @@ import torch
 
 import ehgr_tpu_torch
 from ehgr_tpu_torch.ops.kernels import (action_fused, action_mega, build,
-                                        shift, tsm_shift)
+                                        int8_conv, shift, tsm_shift)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "ehgr_tpu_torch"
@@ -43,6 +43,8 @@ def test_every_module_is_found():
                  "ehgr_tpu_torch.ops.kernels.action_fused",
                  "ehgr_tpu_torch.ops.kernels.shift",
                  "ehgr_tpu_torch.ops.kernels.tsm_shift",
+                 "ehgr_tpu_torch.ops.kernels.int8_conv",
+                 "ehgr_tpu_torch.ops.quantize",
                  "ehgr_tpu_torch.train.checkpoints",
                  "ehgr_tpu_torch.ops.action_vjp",
                  "ehgr_tpu_torch.models.decoders",
@@ -121,7 +123,8 @@ def _cuda(*shape):
                                     "action_stats",
                                     "action_stats_window", "action_apply",
                                     "action_apply_strip", "action_prologue",
-                                    "action_prologue_window", "tsm_shift"])
+                                    "action_prologue_window", "tsm_shift",
+                                    "int8_conv"])
 def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     """A CUDA operand and a kernel that does not build: the wrapper raises
     the build's error; it neither runs the plain version nor counts.
@@ -134,6 +137,10 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     def strip(*shape):
         return torch.Tensor._make_subclass(
             _OnCuda, torch.randn(*shape).to(torch.bfloat16))
+
+    def codes(*shape):
+        return torch.Tensor._make_subclass(
+            _OnCuda, torch.randint(-127, 128, shape, dtype=torch.int8))
     args = {"learnable_shift_fwd": (_cuda(n, t, s, c), _cuda(3, c)),
             "learnable_shift_bwd": (_cuda(n, t, s, c), _cuda(n, t, s, c),
                                     _cuda(3, c)),
@@ -152,14 +159,17 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
                                     strip(64, 4)),
             "action_prologue_window": (strip(n, t, s, 64), strip(3, 64),
                                        strip(64, 4)),
-            "tsm_shift": (_cuda(n, t, s, c), 8)}[kernel]
+            "tsm_shift": (_cuda(n, t, s, c), 8),
+            "int8_conv": (codes(2, c, 5, 5), codes(f, c, 3, 3),
+                          _cuda(f).abs(), 1, 1)}[kernel]
     mod = {"learnable_shift_fwd": shift, "learnable_shift_bwd": shift,
            "learnable_shift_bwd_strip": shift,
            "action_stats": action_mega, "action_apply": action_mega,
            "action_apply_strip": action_mega,
            "action_prologue": action_fused, "tsm_shift": tsm_shift,
            "action_stats_window": action_mega,
-           "action_prologue_window": action_fused}[kernel]
+           "action_prologue_window": action_fused,
+           "int8_conv": int8_conv}[kernel]
     kernel = kernel.replace("_strip", "").replace("_window", "")
 
     def failed_build(name, verbose=False):

@@ -473,6 +473,73 @@ class TestJointSteps:
                 np.testing.assert_allclose(got[key], want[key], rtol=1e-4,
                                            err_msg=f"step {i} {key}")
 
+    def test_thread_gap_is_a_relu_kink(self):
+        """Why ``test_k_steps_match_jax`` runs its f32 port steps on the
+        default threads: on one thread ``scala2.1.op.5.weight``'s parameter
+        delta parts from JAX's by 2.9x KINK_TOL, on row 1219.  Behind it is
+        one element before the last ReLU of ``scala2.1`` (its ``op.6`` BN
+        output), (4, 1219, 0, 0) at the first step, which a float64 run of
+        the port puts at -6.3e-7, inside the f32 runs' rounding of that
+        tensor (max abs error ~3e-5).  On the default threads the port
+        rounds it to the positive side (+2.8e-6), its only sign flip
+        against float64 at ``scala2.1``'s two ReLUs in that step, and its
+        delta of row 1219 after the three steps follows JAX's; on one
+        thread the port keeps float64's signs there and parts from JAX on
+        that row.  So JAX's train step took the element on the other side
+        of the kink from float64, and on one thread the port is the nearer
+        to float64.  The runs start from the shared JAX run's initial
+        variables; the default-thread delta is the shared port run's."""
+        key = ("tsn_mtmm_sd", "mtmm_sd", 1)
+        flat0, _, final = jax_result(*key)
+        batches = make_batches(0, True)[:3]
+
+        def first_step(dtype, mode, threads, steps=1):
+            """The outputs of ``scala2.1``'s two BNs (``op.2``, ``op.6``)
+            at the first step of the port's trajectory over ``steps``
+            batches, and its last state."""
+            seen = {}
+
+            def keep(i, out):
+                if i not in seen:
+                    seen[i] = out.detach().double().numpy()
+
+            def hook(model):
+                for i in (2, 6):
+                    model.scala2[1].op[i].register_forward_hook(
+                        lambda m, inp, out, i=i: keep(i, out))
+            old = torch.get_num_threads()
+            torch.set_num_threads(threads)
+            try:
+                _, state, _ = port_run(*key, mode, flat0, batches[:steps],
+                                       dtype=dtype, on_model=hook)
+            finally:
+                torch.set_num_threads(old)
+            return seen, state
+
+        f64, _ = first_step(torch.float64, None, 1)
+        one, one_state = first_step(torch.float32, "vjp", 1, steps=3)
+        default, _ = first_step(torch.float32, "vjp",
+                                torch.get_num_threads())
+        flips = {name: [(i,) + tuple(f) for i in (2, 6)
+                        for f in np.argwhere((seen[i] > 0) != (f64[i] > 0))]
+                 for name, seen in (("one", one), ("default", default))}
+        assert flips == {"one": [], "default": [(6, 4, 1219, 0, 0)]}
+        kink = f64[6][4, 1219, 0, 0]
+        assert kink < 0 < default[6][4, 1219, 0, 0]
+        for seen in (one, default):
+            assert abs(kink) <= np.abs(seen[6] - f64[6]).max()
+        w = "scala2.1.op.5.weight"
+        p0 = state_dict_from_jax(flat0)[w].numpy()
+        want = state_dict_from_jax({p: a - flat0[p] for p, a in
+                                    final["params"].items()})[w].numpy()
+        gap = {name: np.abs(state.params[w].detach().numpy() - p0 -
+                            want)[:, :, 0, 0].sum(axis=1)
+               for name, state in (
+                   ("one", one_state),
+                   ("default", port_result(*key, "vjp")[1]))}
+        assert gap["one"].argmax() == 1219
+        assert gap["default"][1219] < gap["one"][1219] / 10
+
     def test_eval_step_multi_output_matches_jax(self):
         """``make_eval_step(multi_output=True)`` on the joint surface: the
         final head's and the three exits' top-1/5 hits, live and EMA
