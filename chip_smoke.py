@@ -109,10 +109,13 @@ Phases; any miss raises and the run exits nonzero:
    ``torch.profiler`` trace beside), the shift backward beside its route
    and strip geometry and its earlier design;
 14. int8 inference (run beside the phases above): ``int8_conv`` (the
-   implicit-GEMM int8 conv, ``csrc/int8_conv.cu``, no Pallas counterpart)
-   held bitwise to ``int8_conv_plain`` at the 15 site shapes of the 36
-   int8 sites of ResNet-50 and at one site at T/2 = 4 frames, bf16 and f32
-   out, right after the ACTION checks; ``int8_serve`` after the serve
+   implicit-GEMM int8 conv that quantizes the float activation on its way
+   into shared memory, ``csrc/int8_conv.cu``, no Pallas counterpart) held
+   bitwise to ``int8_conv_plain`` at the 15 site shapes of the 36 int8
+   sites of ResNet-50 and at one site at T/2 = 4 frames, bf16 and f32
+   activations, two kinds of data each, and on every finite bf16 value at
+   three scales, right after the ACTION checks; ``int8_serve`` after the
+   serve
    profile: the scorer on the serve model's weights with
    ``quantize='static'`` calibrated on the first request batch (36
    ``int8_conv`` + 16 + 16 ACTION launches a forward), its probabilities
@@ -122,15 +125,19 @@ Phases; any miss raises and the run exits nonzero:
    --quantize static --action_fused mega`` over test_ego's videos and
    weights (calibrated on the first two loader batches: 2 more ACTION
    forwards), its 36 ``act_scale``s, the first batch against
-   ``int8_conv_plain`` within test_ego's gate, then ``cli.test --quantize
-   dynamic``; each site shape timed in the timings phase beside its bound,
-   ``torch._int_mm`` (1x1 stride 1 only) and the bf16 cuDNN conv.
+   ``int8_conv_plain`` within test_ego's gate, its traced scorer call
+   free of round passes (the quantize passes' kernels listed beside the
+   kernel's), then ``cli.test --quantize dynamic``; each site shape timed
+   in the timings phase beside its bound, the quantize passes the kernel
+   took over, ``torch._int_mm`` (1x1 stride 1 only) and the bf16 cuDNN
+   conv.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
 without CUDA it exits nonzero before doing anything.
 
     python3 chip_smoke.py [--seed 0] [--parity-seeds 0,1,2,3,4,5]
+                          [--int8-only]
 """
 
 from __future__ import annotations
@@ -309,6 +316,13 @@ INT8_PLAIN_TOL = 1e-6
 # int8 logits against the float bf16 model's: the cosine must be above JAX's
 # own bar for int8 inference (tests/test_quantize.py)
 INT8_COS = 0.98
+# kernel names of the passes the int8 sites ran before the kernel fused the
+# quantize (f32 copy, divide, round, clamp, to int8), summed by word with
+# the kernel's in the traced scorer calls of int8_test and test_ego (the
+# float path has copies and clamps of its own); a round kernel in the int8
+# call fails int8_test
+INT8_TRACE_WORDS = ("round_kernel", "DivFunctor", "clamp", "copy_kernel",
+                    "int8_conv")
 
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
@@ -1493,7 +1507,7 @@ def _mode_gate(torch, cfg, arch, heads, frames, skipped_ok, slack):
 
 
 def run_protocol(torch, name, cfg, arch, heads, want, slack,
-                 skipped_ok=(), gate=None, extra=None):
+                 skipped_ok=(), gate=None, extra=None, trace_match=()):
     """A main path: ``run_test(cfg, arch, heads)`` on the card (host
     loader, upload, scorer, votes, metrics), with the kernels'
     launch counters zeroed just before and read just after; each forward
@@ -1505,7 +1519,8 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack,
     probabilities under ``gate(cfg, arch, heads, frames, skipped_ok)``
     (rows with a verdict ``ok``; default ``_mode_gate`` with ``slack``).
     ``skipped_ok``: key prefixes of the checkpoint the model has no place
-    for."""
+    for; ``trace_match``: words of kernel names whose device time the
+    traced call lists in full (``_device_profile``)."""
     from ehgr_tpu_torch.data.factory import build_test_dataset
     from ehgr_tpu_torch.data.pipeline import Loader
     from ehgr_tpu_torch.eval import runner
@@ -1550,7 +1565,8 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack,
         score(b["rgb"])
     torch.cuda.synchronize()
     scorer_s = time.perf_counter() - t0
-    prof = _device_profile(torch, lambda: score(batches[0]["rgb"]))
+    prof = _device_profile(torch, lambda: score(batches[0]["rgb"]),
+                           trace_match)
     del model, score
 
     if gate is None:
@@ -1571,7 +1587,7 @@ def run_protocol(torch, name, cfg, arch, heads, want, slack,
                scorer_alone_clips_per_s=clips / scorer_s,
                scorer_call_traced={k: prof[k] for k in (
                    "wall_ms", "device_busy_ms", "idle_share",
-                   "top_device_ms")},
+                   "top_device_ms", "matched_ms") if k in prof},
                loader_workers=cfg.data.num_workers, probs=rows)
     print(f"{name} " + json.dumps(out), flush=True)
     for g in rows:
@@ -1589,7 +1605,7 @@ def test_ego(torch, seed, checkpoint):
     ``action_apply_strip`` launches a forward."""
     cfg = test_config("ego_baseline", checkpoint, "mega", seed)
     return run_protocol(torch, "test_ego", cfg, "tsn", 1, MEGA_FORWARD,
-                        BF16_SLACK)
+                        BF16_SLACK, trace_match=INT8_TRACE_WORDS)
 
 
 def test_nv_sd(torch, seed, path):
@@ -2124,97 +2140,179 @@ def _bits(torch, y):
     return y.view(torch.int16 if y.dtype == torch.bfloat16 else torch.int32)
 
 
-def _int8_operands(torch, gen, n, cin, cout, k, hw):
-    """Full-range codes (so the int32 sums reach their largest, ~7.4e7 at
-    K = 4608, where the conversion to f32 rounds) and positive scales."""
-    def codes(*shape):
-        return torch.randint(-127, 128, shape, generator=gen, device="cuda",
-                             dtype=torch.int8).contiguous(
-                                 memory_format=torch.channels_last)
-    scale = torch.rand(cout, generator=gen, device="cuda") * 1e-4 + 1e-6
-    return codes(n, cin, hw, hw), codes(cout, cin, k, k), scale
+def _int8_operands(torch, gen, n, cin, cout, k, hw, dtype, kind="normal"):
+    """A site's operands: the float activation (channels_last, ``dtype``),
+    its scale (on the card), int8 weight codes and per-channel scales.
+    ``normal``: N(0, 1) activations, xs = 0.8 max|x| / 127 (a few codes
+    saturate), codes of either sign.  ``large_sums``: activations 1 +
+    0.25 N(0, 1) and weight codes in [0, 127], so the int32 sums of the
+    K = 4608 sites pass 2^24 (~2e7), where their conversion to f32
+    rounds."""
+    x = torch.randn((n, cin, hw, hw), generator=gen, device="cuda")
+    lo = -127
+    if kind == "large_sums":
+        x, lo = 1 + 0.25 * x, 0
+    x = x.to(dtype).contiguous(memory_format=torch.channels_last)
+    xs = x.float().abs().amax() / 127 * 0.8
+    wq = torch.randint(lo, 128, (cout, cin, k, k), generator=gen,
+                       device="cuda", dtype=torch.int8).contiguous(
+                           memory_format=torch.channels_last)
+    ws = torch.rand(cout, generator=gen, device="cuda") * 1e-2 + 1e-4
+    return x, xs, wq, ws
+
+
+def _int8_check(torch, i8, name, x, xs, wq, ws, conv_stride, pad, **info):
+    """One ``int8_conv`` launch against ``int8_conv_plain`` on the same
+    operands: bitwise, and counted once."""
+    before = i8.int8_conv.launches
+    got = i8.int8_conv(x, xs, wq, ws, conv_stride, pad)
+    want = i8.int8_conv_plain(x, xs, wq, ws, conv_stride, pad)
+    torch.cuda.synchronize()
+    err, rel = _rel_err(got, want)
+    dname = str(x.dtype).replace("torch.", "")
+    r = dict(kernel="int8_conv", dtype=dname, **info, max_abs_err=err,
+             max_rel_err=rel, shape=list(got.shape),
+             bitwise=torch.equal(_bits(torch, got), _bits(torch, want)))
+    print(f"check int8_conv {name} {dname}: bitwise={r['bitwise']} "
+          f"err={err:.3e}", flush=True)
+    if not r["bitwise"] or i8.int8_conv.launches != before + 1:
+        raise AssertionError(f"int8_conv differs from its plain version (or "
+                             f"did not launch): {r}")
+    return r
+
+
+# the all-values check: every finite bf16 value and 256 planted ties, at a
+# 1x1 site with Cin = 16 (all int32 sums below 2^24, so a code that moves
+# moves the output), at 0.041 (about the smallest act_scale that int8_serve
+# and int8_test calibrate), at 1 (where every k + 0.5 is a bf16 value) and
+# at MIN_SCALE (where x / xs overflows to inf)
+INT8_VALUE_SCALES = (0.041, 1.0, 1e-12)
+
+
+def _int8_values(torch, xs):
+    """``[1, 16, 64, 64]`` f32 holding every finite bf16 value once (65,280)
+    and the 256 ties (k + 0.5) * xs, k in [-128, 127], rounded to f32."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32,
+                        device="cuda").to(torch.int16).view(torch.bfloat16)
+    finite = bits[torch.isfinite(bits)].float()
+    k = torch.arange(-128, 128, device="cuda", dtype=torch.float32)
+    ties = (k + 0.5) * torch.tensor(xs, dtype=torch.float32, device="cuda")
+    v = torch.cat([finite, ties])
+    assert v.numel() == 64 * 64 * 16
+    return v.reshape(1, 64, 64, 16).permute(0, 3, 1, 2)
+
+
+def check_int8_values(torch, i8, gen):
+    """The quantize in the kernel against the IEEE quotient of the plain
+    version on every finite bf16 value (``_int8_values``) at each of
+    INT8_VALUE_SCALES, as bf16 (the planted ties rounded to bf16) and as
+    f32 (the ties exact f32 products (k + 0.5) * xs, a hair off the tie, so
+    the kernel's near-tie path decides them): bitwise.  The weight is a
+    signed permutation of the 16 channels (one code of +-1 a row), so each
+    output is +-code * (xs * ws[c]) and every code shows in the output,
+    in bf16 too (neighbouring codes are over one bf16 step apart)."""
+    perm = torch.randperm(16, generator=gen, device="cuda")
+    sign = torch.randint(0, 2, (16,), generator=gen, device="cuda") * 2 - 1
+    wq = torch.zeros(16, 16, 1, 1, dtype=torch.int8, device="cuda")
+    wq[torch.arange(16, device="cuda"), perm, 0, 0] = sign.to(torch.int8)
+    ws = torch.rand(16, generator=gen, device="cuda") + 0.5
+    out = []
+    for scale in INT8_VALUE_SCALES:
+        xs = torch.tensor(scale, dtype=torch.float32, device="cuda")
+        v = _int8_values(torch, scale)
+        for dtype in (torch.bfloat16, torch.float32):
+            x = v.to(dtype).contiguous(memory_format=torch.channels_last)
+            out.append(_int8_check(
+                torch, i8, f"all_bf16_values xs={scale}", x, xs, wq, ws, 1,
+                0, site="all_bf16_values", scale=scale, C=16, F=16, k=1,
+                stride=1, H=64, n=1))
+    return out
 
 
 def check_int8(torch, i8, gen):
-    """``int8_conv`` against ``int8_conv_plain`` at the 15 site shapes of
-    INT8_SITES at the served batch's clips and at INT8_TPOOL, in bf16 and
-    f32 out: bitwise equal (the same integers, then the same f32 multiply
-    and rounding), each launch counted."""
+    """``int8_conv`` (float activation in) against ``int8_conv_plain`` at
+    the 15 site shapes of INT8_SITES at the served batch's clips and at
+    INT8_TPOOL, bf16 and f32 activations, each with ``normal`` and
+    ``large_sums`` operands (``_int8_operands``): bitwise equal (the same
+    codes, the same integers, then the same f32 multiply and rounding),
+    each launch counted; then ``check_int8_values``."""
     out = []
     shapes = [(site, VIDEOS * CLIPS * T) for site in INT8_SITES] + \
         [(INT8_TPOOL, VIDEOS * CLIPS * T // 2)]
     for (kind, cin, cout, k, stride, hw, _), n in shapes:
-        xq, wq, scale = _int8_operands(torch, gen, n, cin, cout, k, hw)
-        for dname in ("bfloat16", "float32"):
-            dtype = getattr(torch, dname)
-            before = i8.int8_conv.launches
-            got = i8.int8_conv(xq, wq, scale, stride, k // 2, dtype)
-            want = i8.int8_conv_plain(xq, wq, scale, stride, k // 2, dtype)
-            torch.cuda.synchronize()
-            err, rel = _rel_err(got, want)
-            r = dict(kernel="int8_conv", site=kind, n=n, C=cin, F=cout, k=k,
-                     stride=stride, H=hw, dtype=dname, max_abs_err=err,
-                     max_rel_err=rel, shape=list(got.shape),
-                     bitwise=torch.equal(_bits(torch, got),
-                                         _bits(torch, want)))
-            out.append(r)
-            print(f"check int8_conv {kind:10s} n={n} {cin}->{cout} k={k} "
-                  f"s={stride} {hw}^2 {dname}: bitwise={r['bitwise']} "
-                  f"err={err:.3e}", flush=True)
-            if not r["bitwise"] or i8.int8_conv.launches != before + 1:
-                raise AssertionError(f"int8_conv differs from its plain "
-                                     f"version (or did not launch): {r}")
-            del got, want
-        del xq, wq, scale
-    return out
+        for dtype in (torch.bfloat16, torch.float32):
+            for data in ("normal", "large_sums"):
+                ops = _int8_operands(torch, gen, n, cin, cout, k, hw, dtype,
+                                     data)
+                out.append(_int8_check(
+                    torch, i8, f"{kind:10s} n={n} {cin}->{cout} k={k} "
+                    f"s={stride} {hw}^2 {data}", *ops, stride, k // 2,
+                    site=kind, data=data, n=n, C=cin, F=cout, k=k,
+                    stride=stride, H=hw,
+                    grid=i8.int8_conv_grid(dtype, ops[0].shape[0] * (
+                        (hw + 2 * (k // 2) - k) // stride + 1) ** 2, cout,
+                        k * k * cin)))
+                del ops
+    return out + check_int8_values(torch, i8, gen)
 
 
 def time_int8(torch, i8, gen):
-    """Per site shape of INT8_SITES at the served batch's clips, bf16 out:
-    the kernel (CUDA events back to back, and on the device alone with its
-    inputs cold in L2), its plain version and two yardsticks that are not
-    the same function: ``torch._int_mm`` (the int32 GEMM alone, no scale)
-    at the 1x1 stride-1 sites, the only ones one call covers, and the bf16
-    cuDNN conv of the same site, the float path the int8 one replaces.
-    Bound: the codes the conv needs and the weights read once, the scales
-    read and the bf16 output written once at 3.35 TB/s, beside 2 M N K
-    operations at the int8 peak; the same convs in bf16 (2 bytes an input
-    and a weight element, no scales) at the bf16 peak beside.  A 1x1
-    conv needs one input pixel an output pixel (a quarter of the input at
-    stride 2); a 3x3 one, pad 1, all of it."""
+    """Per site shape of INT8_SITES at the served batch's clips, bf16
+    activations: the kernel (CUDA events back to back, and on the device
+    alone with its inputs cold in L2), its plain version, the work the
+    kernel took over from the earlier composition (``quantize_codes`` and
+    the channels_last copy of the codes, and ``xs * ws``, on the same
+    inputs), and two yardsticks that are not the same function:
+    ``torch._int_mm`` (the int32 GEMM of the codes alone, no quantize, no
+    scale) at the 1x1 stride-1 sites, the only ones one call covers, and
+    the bf16 cuDNN conv of the same site, the float path the int8 one
+    replaces.  Bound: the bf16 activation the conv needs (2 bytes an
+    element) and the weight codes read once, the scales read and the bf16
+    output written once at 3.35 TB/s, beside 2 M N K operations at the int8
+    peak; the same convs in bf16 (2 bytes an input and a weight element,
+    no scales) at the bf16 peak beside.  A 1x1 conv needs one input pixel
+    an output pixel (a quarter of the input at stride 2); a 3x3 one, pad 1,
+    all of it."""
     import torch.nn.functional as F
+
+    from ehgr_tpu_torch.ops.kernels.int8_conv import quantize_codes
 
     n = VIDEOS * CLIPS * T
     rows_out = []
     for kind, cin, cout, k, stride, hw, count in INT8_SITES:
-        xq, wq, scale = _int8_operands(torch, gen, n, cin, cout, k, hw)
+        x, xs, wq, ws = _int8_operands(torch, gen, n, cin, cout, k, hw,
+                                       torch.bfloat16)
         ho = (hw + 2 * (k // 2) - k) // stride + 1
         m, kk = n * ho * ho, k * k * cin
-        x_elems = m * cin if k == 1 else xq.numel()
-        nbytes = x_elems + wq.numel() + 4 * cout + 2 * m * cout
+        x_elems = m * cin if k == 1 else x.numel()
+        nbytes = 2 * x_elems + wq.numel() + 4 * cout + 4 + 2 * m * cout
         bf16_bytes = 2 * (x_elems + wq.numel() + m * cout)
         t_bytes, t_ops = _bound_ms(nbytes, 2 * m * cout * kk, "int8")
-        xb = torch.randn(xq.shape, generator=gen, device="cuda").to(
-            torch.bfloat16).contiguous(memory_format=torch.channels_last)
         wb = torch.randn(wq.shape, generator=gen, device="cuda").to(
             torch.bfloat16).contiguous(memory_format=torch.channels_last)
 
         def kernel():
-            return i8.int8_conv(xq, wq, scale, stride, k // 2)
+            return i8.int8_conv(x, xs, wq, ws, stride, k // 2)
+
+        def removed():
+            return (quantize_codes(x, xs).contiguous(
+                memory_format=torch.channels_last), xs * ws)
         r = dict(kernel="int8_conv", site=kind, C=cin, F=cout, k=k,
                  stride=stride, H=hw, sites=count, M=m, K=kk, bytes=nbytes,
                  bytes_ms=t_bytes, ops_ms=t_ops, bound_ms=max(t_bytes, t_ops),
                  bound_by="bytes" if t_bytes >= t_ops else "operations",
                  bf16_bound_ms=max(_bound_ms(bf16_bytes, 2 * m * cout * kk,
                                              "bfloat16")),
+                 grid=i8.int8_conv_grid(torch.bfloat16, m, cout, kk),
                  ms=_time_ms(torch, kernel),
                  plain_ms=_time_ms(torch, lambda: i8.int8_conv_plain(
-                     xq, wq, scale, stride, k // 2), reps=3),
+                     x, xs, wq, ws, stride, k // 2), reps=3),
+                 removed_quantize_ms=_time_ms(torch, removed),
                  cudnn_bf16_ms=_time_ms(torch, lambda: F.conv2d(
-                     xb, wb, stride=stride, padding=k // 2)),
+                     x, wb, stride=stride, padding=k // 2)),
                  int_mm_ms=None)
         if k == 1 and stride == 1:
-            a = xq.permute(0, 2, 3, 1).reshape(-1, cin)
+            a = quantize_codes(x, xs).permute(0, 2, 3, 1).reshape(-1, cin)
             b = wq.reshape(cout, cin).t()
             r["int_mm_ms"] = _time_ms(torch, lambda: torch._int_mm(a, b))
         r["roofline_share"] = r["bound_ms"] / r["ms"]
@@ -2224,12 +2322,21 @@ def time_int8(torch, i8, gen):
         rows_out.append(r)
         lib = "-" if r["int_mm_ms"] is None else f"{r['int_mm_ms']:.4f}"
         print(f"time int8_conv {kind:10s} {cin}->{cout} k={k} s={stride} "
-              f"{hw}^2 ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
+              f"{hw}^2 BN={r['grid']['BN']} blocks={r['grid']['blocks']} "
+              f"ms={r['ms']:.4f} device_ms={r['device_ms']:.4f} "
               f"bound={r['bound_ms']:.4f} ({r['bound_by']}) "
               f"device_share={r['device_share']:.3f} "
-              f"plain={r['plain_ms']:.4f} int_mm={lib} "
-              f"cudnn_bf16={r['cudnn_bf16_ms']:.4f}", flush=True)
-        del xq, wq, scale, xb, wb
+              f"plain={r['plain_ms']:.4f} "
+              f"removed_quantize={r['removed_quantize_ms']:.4f} "
+              f"int_mm={lib} cudnn_bf16={r['cudnn_bf16_ms']:.4f}",
+              flush=True)
+        del x, xs, wq, ws, wb
+    tot = {key: sum(r[key] * r["sites"] for r in rows_out)
+           for key in ("ms", "device_ms", "bound_ms", "removed_quantize_ms",
+                       "cudnn_bf16_ms")}
+    print("time int8_conv forward (36 sites) " + json.dumps(
+        dict(tot, device_share=tot["bound_ms"] / tot["device_ms"])),
+        flush=True)
     return rows_out
 
 
@@ -2381,9 +2488,23 @@ def int8_test(torch, seed, checkpoint, ego):
         out = run_protocol(torch, "int8_test", cfg, "tsn", 1, INT8_FORWARD,
                            BF16_SLACK, gate=gate,
                            extra={k: v * CALIB_FORWARDS
-                                  for k, v in MEGA_FORWARD.items()})
+                                  for k, v in MEGA_FORWARD.items()},
+                           trace_match=INT8_TRACE_WORDS)
     finally:
         runner._build_model = inner
+    traced, floated = (p["scorer_call_traced"] for p in (out, ego))
+
+    def by_word(matched):
+        return {w: sum(v for k, v in matched.items() if w in k)
+                for w in INT8_TRACE_WORDS}
+    out["trace"] = dict(busy_ms=traced["device_busy_ms"],
+                        float_busy_ms=floated["device_busy_ms"],
+                        ms_by_word=by_word(traced["matched_ms"]),
+                        float_ms_by_word=by_word(floated["matched_ms"]))
+    print("int8_trace " + json.dumps(out["trace"]), flush=True)
+    if any("round_kernel" in k for k in traced["matched_ms"]):
+        raise AssertionError(f"int8_test: a round pass runs in the traced "
+                             f"int8 scorer call: {out['trace']}")
     model, calib = built[0]
     scales = {n: m.act_scale.item() for n, m in model.named_modules()
               if m in sites(model)}
@@ -2415,9 +2536,11 @@ def int8_test(torch, seed, checkpoint, ego):
     return out
 
 
-def _device_profile(torch, fn):
+def _device_profile(torch, fn, match=()):
     """Wall time and device time by kernel name of one call of ``fn``
-    (torch.profiler), ``fn`` run once before to warm up."""
+    (torch.profiler), ``fn`` run once before to warm up; with ``match``,
+    also every kernel whose name holds one of those words
+    (``matched_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -2435,8 +2558,12 @@ def _device_profile(torch, fn):
                                  getattr(e, "self_cuda_time_total", 0)) / 1e3
     busy = sum(dev.values())
     top = dict(sorted(dev.items(), key=lambda kv: -kv[1])[:20])
-    return dict(wall_ms=wall, device_busy_ms=busy,
-                idle_share=1 - busy / wall, top_device_ms=top)
+    out = dict(wall_ms=wall, device_busy_ms=busy,
+               idle_share=1 - busy / wall, top_device_ms=top)
+    if match:
+        out["matched_ms"] = {k: v for k, v in dev.items()
+                             if any(w in k for w in match)}
+    return out
 
 
 def profile_train(torch, warm):
@@ -2894,32 +3021,41 @@ def kernel_table(checks, timings, launches):
     c = [r for r in checks if r["kernel"] == "int8_conv"]
     tot = {k: sum(r[k] * r["sites"] for r in t)
            for k in ("ms", "plain_ms", "bound_ms", "bytes_ms", "ops_ms",
-                     "bf16_bound_ms", "device_ms", "cudnn_bf16_ms")}
+                     "bf16_bound_ms", "device_ms", "cudnn_bf16_ms",
+                     "removed_quantize_ms")}
     by_path = {p: v["int8_conv"] for p, v in launches.items()
                if v.get("int8_conv")}
     table.append(dict(
         name="int8_conv", route="cuda", source=csrc + "int8_conv.cu",
         replaces="none: no pl.pallas_call; the XLA int8 conv of "
         "ehgr_tpu/ops/quantize.py:121",
+        redesigned="float activation in, the quantize fused into the A-tile "
+        "load, wgmma on s8 from swizzled tiles, 16-byte epilogue stores; the "
+        "earlier kernel's time is in PERF.md's kernel table",
         launches=sum(by_path.values()), launches_by_path=by_path,
         max_abs_err=max(r["max_abs_err"] for r in c
                         if r["dtype"] == "bfloat16"),
         max_abs_err_fp32=max(r["max_abs_err"] for r in c
                              if r["dtype"] == "float32"),
         bitwise=all(r["bitwise"] for r in c),
+        bitwise_all_bf16_values=all(r["bitwise"] for r in c
+                                    if r["site"] == "all_bf16_values"),
         ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
         bound_by="bytes" if tot["bytes_ms"] >= tot["ops_ms"]
         else "operations",
         library_ms=None,
         library_note="no PyTorch call computes an int8 conv on CUDA; "
-        "int_mm_ms: torch._int_mm (int32 GEMM, no scale) at the 1x1 "
-        "stride-1 sites alone; cudnn_bf16_ms: the float bf16 conv of every "
-        "site",
+        "int_mm_ms: torch._int_mm (int32 GEMM of the codes, no quantize, no "
+        "scale) at the 1x1 stride-1 sites alone; cudnn_bf16_ms: the float "
+        "bf16 conv of every site; removed_quantize_ms: the passes the "
+        "kernel took over (quantize_codes, the channels_last copy, "
+        "xs * ws)",
         int_mm_ms=sum(r["int_mm_ms"] * r["sites"] for r in t
                       if r["int_mm_ms"] is not None),
         int_mm_sites_ms=sum(r["ms"] * r["sites"] for r in t
                             if r["int_mm_ms"] is not None),
         cudnn_bf16_ms=tot["cudnn_bf16_ms"],
+        removed_quantize_ms=tot["removed_quantize_ms"],
         bf16_bound_ms=tot["bf16_bound_ms"], device_ms=tot["device_ms"],
         device_share=tot["bound_ms"] / tot["device_ms"],
         per="forward of the served batch, 20 clips (36 sites)",
@@ -2928,6 +3064,7 @@ def kernel_table(checks, timings, launches):
                                   "device_ms_by_kernel", "plain_ms",
                                   "bound_ms", "bound_by", "bf16_bound_ms",
                                   "int_mm_ms", "cudnn_bf16_ms",
+                                  "removed_quantize_ms", "grid",
                                   "roofline_share", "device_share")}
                for r in t]))
     return table
@@ -2971,6 +3108,9 @@ def main(argv=None) -> int:
                    "and write every leaf's error to --out")
     p.add_argument("--out", default="parity_leaves.json",
                    help="where --parity-seeds writes its readings")
+    p.add_argument("--int8-only", action="store_true",
+                   help="run only the int8_conv checks and timings (the "
+                   "kernel's short loop); prints no result line")
     args = p.parse_args(argv)
 
     import torch
@@ -3003,6 +3143,11 @@ def main(argv=None) -> int:
     if args.parity_seeds is not None:
         return parity_sweep(torch, [int(k) for k in
                                     args.parity_seeds.split(",")], args.out)
+    if args.int8_only:
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        check_int8(torch, i8, gen)
+        time_int8(torch, i8, gen)
+        return 0
 
     n = VIDEOS * CLIPS                         # clips per forward
     gen = torch.Generator(device="cuda").manual_seed(args.seed)

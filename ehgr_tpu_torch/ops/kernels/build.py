@@ -86,17 +86,19 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
                                  _I, _I, _I, _P],
     },
     "int8_conv": {
-        # dtype (of out), x, w, scale, out, n, h, w, cin, cout, kh, kw,
-        # stride, pad, ho, wo, stream
-        "ehgr_int8_conv": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _I, _I, _I, _I, _P],
+        # dtype (of x and out), x, xs, w, ws, out, n, h, w, cin, cout, kh,
+        # kw, stride, pad, ho, wo, stream
+        "ehgr_int8_conv_fused": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                 _I, _I, _I, _I, _I, _I, _P],
+        # dtype, m, cout, k, int[5] out: blocks, BN, BM, x ring stages,
+        # shared memory bytes
+        "ehgr_int8_conv_grid": [_I, _I, _I, _I, _P],
     },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
-# dtype argument of every entry point (of its output, where the inputs are
-# int8)
+# dtype argument of every entry point
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

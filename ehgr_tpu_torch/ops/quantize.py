@@ -4,9 +4,11 @@
 * Weights: per-output-channel symmetric int8, ``ws = max|w| / 127``.
 * Activations: per-tensor symmetric int8, ``xs`` the tensor's ``max|x| /
   127`` (``'dynamic'``) or the calibrated ``act_scale`` (``'static'``).
-* The conv sums the int8 codes in int32 (the ``int8_conv`` kernel on the
-  card), then ``(acc.float() * (xs * ws)).to(dtype)``, the JAX package's
-  order.
+* The conv quantizes ``x`` by ``xs`` and sums the int8 codes in int32,
+  then ``(acc.float() * (xs * ws)).to(dtype)``, the JAX package's order:
+  one launch of the ``int8_conv`` kernel on the card, which quantizes the
+  activation on its way into shared memory, so no pass over ``x`` runs
+  before it (in ``'dynamic'`` but its amax).
 
 ``QuantConv`` replaces a bias-free ``Conv2d`` with the same ``weight`` key
 and shape, so ``.pth`` files and ``load_state_dict(strict=True)`` are
@@ -24,7 +26,7 @@ import torch
 from torch import nn
 
 from ehgr_tpu_torch.models.layers import Conv2d
-from ehgr_tpu_torch.ops.kernels.int8_conv import int8_conv
+from ehgr_tpu_torch.ops.kernels.int8_conv import int8_conv, quantize_codes
 
 MODES = ("float", "dynamic", "static", "calib")
 # below this a scale would divide by zero (a tensor of zeros, or a site
@@ -41,15 +43,16 @@ def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return wq.to(torch.int8).contiguous(memory_format=torch.channels_last), ws
 
 
-def quantize_codes(x: torch.Tensor, xs: torch.Tensor) -> torch.Tensor:
-    """``x`` -> int8 ``clip(round(x / xs), -127, 127)``, rounding half to
-    even as ``jnp.round`` does, and dividing as JAX does (no reciprocal)."""
-    return torch.clamp(torch.round(x.float() / xs), -127, 127).to(torch.int8)
+def amax(x: torch.Tensor) -> torch.Tensor:
+    """``max|x|`` as an f32 scalar, taken in ``x``'s dtype: abs, max and the
+    widening to f32 are exact, so it is bitwise ``x.float().abs().amax()``
+    without the f32 copy."""
+    return x.abs().amax().float()
 
 
 def dynamic_scale(x: torch.Tensor) -> torch.Tensor:
     """The f32 per-tensor scale ``max|x| / 127`` (at least MIN_SCALE)."""
-    return torch.clamp_min(x.float().abs().amax() / 127.0, MIN_SCALE)
+    return torch.clamp_min(amax(x) / 127.0, MIN_SCALE)
 
 
 def quantize_activation(x: torch.Tensor) -> Tuple[torch.Tensor,
@@ -64,8 +67,7 @@ def record_amax(act_scale: torch.Tensor, x: torch.Tensor) -> None:
     """``act_scale = max(act_scale, max|x| / 127)``, in place (the
     ``'calib'`` mode's running maximum)."""
     with torch.no_grad():
-        act_scale.copy_(torch.maximum(
-            act_scale, x.detach().float().abs().amax() / 127.0))
+        act_scale.copy_(torch.maximum(act_scale, amax(x.detach()) / 127.0))
 
 
 class WeightCodes:
@@ -89,11 +91,10 @@ class WeightCodes:
 def int8_forward(x: torch.Tensor, codes: Tuple[torch.Tensor, torch.Tensor],
                  xs: torch.Tensor, stride: int, padding: int
                  ) -> torch.Tensor:
-    """The int8 conv of ``x`` (quantized with scale ``xs``) by the weight
-    codes ``(wq, ws)``, in ``x``'s dtype."""
+    """The int8 conv of ``x`` (quantized with scale ``xs`` inside the
+    kernel) by the weight codes ``(wq, ws)``, in ``x``'s dtype."""
     wq, ws = codes
-    xq = quantize_codes(x, xs).contiguous(memory_format=torch.channels_last)
-    return int8_conv(xq, wq, xs * ws, stride, padding, x.dtype)
+    return int8_conv(x, xs, wq, ws, stride, padding)
 
 
 class QuantConv(Conv2d):

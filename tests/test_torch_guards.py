@@ -114,7 +114,7 @@ class _OnCuda(torch.Tensor):
 
 
 def _cuda(*shape):
-    return torch.Tensor._make_subclass(_OnCuda, torch.randn(*shape))
+    return torch.Tensor._make_subclass(_OnCuda, torch.randn(shape))
 
 
 @pytest.mark.parametrize("kernel", ["learnable_shift_fwd",
@@ -160,8 +160,8 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
             "action_prologue_window": (strip(n, t, s, 64), strip(3, 64),
                                        strip(64, 4)),
             "tsm_shift": (_cuda(n, t, s, c), 8),
-            "int8_conv": (codes(2, c, 5, 5), codes(f, c, 3, 3),
-                          _cuda(f).abs(), 1, 1)}[kernel]
+            "int8_conv": (_cuda(2, c, 5, 5), _cuda().abs(),
+                          codes(f, c, 3, 3), _cuda(f).abs(), 1, 1)}[kernel]
     mod = {"learnable_shift_fwd": shift, "learnable_shift_bwd": shift,
            "learnable_shift_bwd_strip": shift,
            "action_stats": action_mega, "action_apply": action_mega,

@@ -10,8 +10,12 @@ scales within 1e-6 relative; ``'static'`` after calibration equal to
 static logits against JAX's from the same carried ``act_scale``s (rtol
 2e-3, atol 1e-4, the golden anchors' limits); the train path exactly the
 float model's; a non-ResNet backbone raising; and ``ActionConv``'s opt-in
-int8 wrapped conv.  The port's ``int8_conv`` runs its plain version here
-(CPU tensors); ``chip_smoke.py`` holds the kernel to it bitwise."""
+int8 wrapped conv.  The port's ``int8_conv`` (float activation in, the
+quantize fused into the kernel) runs its plain version here (CPU tensors),
+held bitwise to the composition it replaced (``quantize_codes``, then the
+integer conv of the codes with the scale ``xs * ws``) and to JAX's ops at
+ties, saturation and the smallest scale; ``chip_smoke.py`` holds the
+kernel to it bitwise."""
 
 from collections import OrderedDict
 
@@ -34,11 +38,13 @@ from ehgr_tpu_torch.models.convert import load_jax_variables, torch_key
 from ehgr_tpu_torch.models.layers import Conv2d
 from ehgr_tpu_torch.models.tsn import variant
 from ehgr_tpu_torch.ops.action import ActionConv
-from ehgr_tpu_torch.ops.kernels.int8_conv import int8_conv_plain
-from ehgr_tpu_torch.ops.quantize import (MODES, QuantConv, calibrate,
+from ehgr_tpu_torch.ops.kernels.int8_conv import (int8_conv_codes,
+                                                  int8_conv_plain)
+from ehgr_tpu_torch.ops.quantize import (MIN_SCALE, MODES, QuantConv,
+                                         calibrate, dynamic_scale,
                                          quantize_activation,
                                          quantize_codes, quantize_weight,
-                                         sites)
+                                         record_amax, sites)
 
 from test_torch_train import single_thread  # noqa: F401  (a fixture)
 
@@ -444,9 +450,9 @@ class TestActionOptIn:
 
 
 def test_plain_int8_conv_is_the_integer_conv(rng):
-    """``int8_conv_plain``: the float64 conv of the codes is the exact
-    integer sum (checked against an int64 sum by taps), then JAX's
-    epilogue, in f32 and bf16."""
+    """``int8_conv_codes``, the integer core of ``int8_conv_plain``: the
+    float64 conv of the codes is the exact integer sum (checked against an
+    int64 sum by taps), then JAX's epilogue, in f32 and bf16."""
     xq = torch.from_numpy(rng.integers(-127, 128, (2, 32, 7, 7),
                                        dtype=np.int8))
     wq = torch.from_numpy(rng.integers(-127, 128, (16, 32, 3, 3),
@@ -459,11 +465,118 @@ def test_plain_int8_conv_is_the_integer_conv(rng):
             patch = xp[:, :, i:i + 7:2, j:j + 7:2]          # stride 2
             acc += torch.einsum("nchw,oc->nohw", patch, wq[:, :, i, j].long())
     for dtype in (torch.float32, torch.bfloat16):
-        got = int8_conv_plain(xq, wq, scale, 2, 1, dtype)
+        got = int8_conv_codes(xq, wq, scale, 2, 1, dtype)
         want = (acc.to(torch.int32).float() * scale[:, None, None]).to(dtype)
         assert got.dtype == dtype
         np.testing.assert_array_equal(got.float().numpy(),
                                       want.float().numpy())
+
+
+def _fused_case(rng, kind, dname):
+    """Activations ``[2, 32, 7, 7]`` (in ``dname``, the values the model
+    would hand over) and their scale for one case of the fused plain
+    version: ``normal`` (xs = max|x| / 127); ``ties`` (xs = 2^-4, and half
+    the elements planted at exactly (k + 0.5) * xs, k in [-127, 126], so
+    x / xs is a tie); ``saturating`` (xs = 0.3 max|x| / 127, with +-127.5
+    xs, +-128 xs and +-1e30 planted); ``min_scale`` (xs = MIN_SCALE, the
+    values a few hundred MIN_SCALE wide, so most codes saturate and a few
+    do not)."""
+    x = rng.standard_normal((2, 7, 7, 32)).astype(np.float32) * 2
+    flat = x.reshape(-1)
+    if kind == "ties":
+        xs = np.float32(2.0 ** -4)
+        k = rng.integers(-127, 127, flat.size // 2).astype(np.float32)
+        flat[rng.permutation(flat.size)[:flat.size // 2]] = (k + 0.5) * xs
+    elif kind == "saturating":
+        xs = np.float32(np.abs(x).max() / 127 * 0.3)
+        planted = np.float32([127.5, -127.5, 128, -128]) * xs
+        flat[:8] = np.concatenate([planted, [1e30, -1e30, 127 * xs,
+                                             -127 * xs]])
+    elif kind == "min_scale":
+        xs = np.float32(MIN_SCALE)
+        x *= np.float32(100 * MIN_SCALE)
+    x = _nchw(x).to(getattr(torch, dname))
+    if kind == "normal":
+        xs = np.float32(x.float().abs().max().item()) / np.float32(127)
+    return x, torch.tensor(np.float32(xs))
+
+
+@pytest.mark.parametrize("kind", ["normal", "ties", "saturating",
+                                  "min_scale"])
+@pytest.mark.parametrize("geom", sorted(GEOMETRIES))
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_fused_plain_is_the_codes_composition(rng, dname, geom, kind):
+    """``int8_conv_plain(x, xs, wq, ws)``, the plain version of the fused
+    kernel, is bitwise what the int8 sites computed before the quantize
+    moved into the kernel: ``quantize_codes(x, xs)``, then the integer conv
+    of the codes with the scale ``xs * ws`` (``int8_conv_codes``), in
+    ``x``'s dtype; and bitwise JAX's ops in its order
+    (``ehgr_tpu/ops/quantize.py:117-125``, run op by op), codes and output,
+    at 1x1 and 3x3, stride 1 and 2, with ties, saturation and MIN_SCALE."""
+    k, stride, pad = GEOMETRIES[geom]
+    x, xs = _fused_case(rng, kind, dname)
+    w = rng.standard_normal((k, k, CIN, COUT)).astype(np.float32)
+    wq, ws = quantize_weight(_oihw(w))
+    got = int8_conv_plain(x, xs, wq, ws, stride, k // 2)
+    xq = quantize_codes(x, xs)
+    want = int8_conv_codes(xq, wq, xs * ws, stride, k // 2, x.dtype)
+    assert got.dtype == x.dtype and got.is_contiguous(
+        memory_format=torch.channels_last)
+    assert torch.equal(got, want)
+    jx = jnp.asarray(x.float().permute(0, 2, 3, 1).numpy()).astype(
+        jnp.bfloat16 if dname == "bfloat16" else jnp.float32)
+    jxs = jnp.asarray(xs.numpy())
+    jxq = jnp.clip(jnp.round(jx.astype(jnp.float32) / jxs), -127,
+                   127).astype(jnp.int8)
+    np.testing.assert_array_equal(xq.permute(0, 2, 3, 1).numpy(),
+                                  np.asarray(jxq))
+    if kind == "ties":
+        half = np.abs(np.asarray(jx.astype(jnp.float32) / jxs) % 1) == 0.5
+        assert half.sum() > 0
+        np.testing.assert_array_equal(np.asarray(jxq)[half] % 2, 0)
+    jwq = jnp.asarray(wq.permute(2, 3, 1, 0).numpy())
+    acc = jax.lax.conv_general_dilated(
+        jxq, jwq, (stride, stride), pad,
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+        preferred_element_type=jnp.int32)
+    jy = (acc.astype(jnp.float32) * (jxs * jnp.asarray(ws.numpy()))
+          ).astype(jx.dtype)
+    np.testing.assert_array_equal(
+        got.permute(0, 2, 3, 1).float().numpy(),
+        np.asarray(jy.astype(jnp.float32)))
+
+
+def _bf16_values(kind):
+    """bf16 tensors of ``kind``: every finite bit pattern, the subnormals
+    and zeros, the negatives, or the two zeros."""
+    bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    finite = bits[torch.isfinite(bits)]
+    if kind == "subnormals_and_zeros":
+        return finite[finite.float().abs() < 2.0 ** -126]
+    if kind == "negatives":
+        return finite[finite.float() < 0]
+    if kind == "signed_zeros":
+        return finite[finite.float() == 0]
+    return finite
+
+
+@pytest.mark.parametrize("kind", ["all_finite", "subnormals_and_zeros",
+                                  "negatives", "signed_zeros"])
+def test_bf16_amax_is_the_f32_amax(rng, kind):
+    """``dynamic_scale`` and ``record_amax`` take max|x| in x's own dtype
+    (no f32 copy); on bf16 that is bitwise the f32 form ``x.float().abs()
+    .amax()``, over negatives, subnormals and +-0, since abs, max and the
+    widening are exact."""
+    v = _bf16_values(kind)
+    x = v[torch.from_numpy(rng.permutation(v.numel()))].reshape(1, -1, 1, 1)
+    ref = x.float().abs().amax() / 127.0
+    assert torch.equal(dynamic_scale(x), torch.clamp_min(ref, MIN_SCALE))
+    scale = torch.zeros(())
+    record_amax(scale, x)
+    assert scale.dtype == torch.float32 and torch.equal(scale, ref)
+    if kind == "signed_zeros":
+        assert x.numel() == 2 and ref.item() == 0.0
 
 
 def test_trainers_train_float():
