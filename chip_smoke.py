@@ -132,6 +132,25 @@ Phases; any miss raises and the run exits nonzero:
    took over, ``torch._int_mm`` (1x1 stride 1 only) and the bf16 cuDNN
    conv.
 
+15. the serving surfaces (after ``loop_test_sd``, whose SD ``best`` they
+   read): ``preprocess_eval_batch`` on the card against the port on the
+   CPU at three camera geometries (square resize up and down, short side
+   then centre crop); ``cli.export_serving --videos sym --action_fused
+   mega`` on the serve model's weights, then ``--clip_scorer``,
+   ``--quantize static`` and a TSM scorer, every artifact loaded in one
+   fresh process that imports ``ehgr_tpu_torch.serve`` and no model code:
+   the kernels' launches counted there (16 + 16 a 'mega' forward, 36 more
+   for int8, 16 ``tsm_shift``), the graph's ``ehgr::*`` nodes, the
+   probabilities against the live scorer, bytes, export and load seconds,
+   clips/s loaded against live; ``cli.test_cascade --cascade_exit 1`` in
+   'mega' and 'prologue' with each stage's launches counted apart, and the
+   two-pass run against the sweep on the request batches;
+   ``cli.stream_demo`` with ``--cascade_exit 0`` and ``1`` (fps, window
+   latency, launches a window); and after the serve phase the custom ops'
+   dispatch cost (``serve_dispatch``: the scorer with the ACTION kernels
+   through their ops and through their CUDA implementations directly, in
+   turns).
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
 without CUDA it exits nonzero before doing anything.
@@ -324,6 +343,38 @@ INT8_COS = 0.98
 INT8_TRACE_WORDS = ("round_kernel", "DivFunctor", "clamp", "copy_kernel",
                     "int8_conv")
 
+# the serving surfaces' clip counts a forward beside the ones above: the
+# stream's one clip a window, a loaded artifact's batch of 4 videos and the
+# cascade check's 6 videos (its full stage at the 4-video bucket)
+SERVE_CLIPS = (1, 4 * CLIPS, 6 * CLIPS)
+# frame geometries of the on-device resize check: (H, W), square resize,
+# scale, crop (EgoGesture's square 224 from a 4:3 camera frame and from a
+# larger square one; NvGesture's short side to 256, then the centre 224)
+PREPROCESS_GEOMS = [((120, 160), True, 224, 224),
+                    ((300, 300), True, 224, 224),
+                    ((240, 320), False, 256, 224)]
+# the card's resize against the port's on the CPU: max |diff| of the
+# normalized f32 output (the two sum the filter taps in other orders; JAX's
+# resize is held to the port's CPU one at the same bound in the tests)
+PREPROCESS_TOL = 1e-4
+# a loaded artifact's bf16 video probabilities against the live scorer's on
+# the same inputs: the same kernels and convs on the same card, so any
+# difference is cuDNN taking another algorithm for a conv of the exported
+# graph; probabilities near 1/83 round at ~6e-5 in bf16, so a few ulps stay
+# well inside this
+ARTIFACT_TOL = 1e-3
+# launches of one forward of the exit-1 deploy (tsn_middle1: the 3 ACTION
+# sites of layer1) in 'mega' and in 'prologue'
+EXIT1_MEGA = {"action_stats": 3, "action_stats_window": 3,
+              "action_apply": 3, "action_apply_strip": 3}
+EXIT1_PROLOGUE = {"action_prologue": 3, "action_prologue_window": 3}
+# frames pushed through the stream demo (cli.stream_demo's default; T=8,
+# window 32, stride 8: a window every 8 frames from frame 8, 32 windows)
+STREAM_FRAMES = 256
+# passes over the request batches in each turn of the dispatch comparison
+# and in the timing of a loaded artifact and its live scorer
+DISPATCH_REPS = 5
+
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
     def randn(*shape, scale=1.0):
@@ -405,12 +456,14 @@ def _repeat_is_bitwise(torch, first, call):
 
 def _check_shapes(n):
     """(clips, T, S, C, F) of the ACTION kernel checks: every site at the
-    served batch's ``n`` clips and at TRAIN_CLIPS (the train steps' batch:
-    the window kernel picks its TG from the clip count), every 224^2 and
+    served batch's ``n`` clips, at TRAIN_CLIPS (the train steps' batch:
+    the window kernel picks its TG from the clip count) and at the serving
+    surfaces' SERVE_CLIPS, every 224^2 and
     256^2 site at the test runner's RUN_CLIPS, the ragged and route shapes
     and T_SHAPES at ``n``, and the sites of stages 3-4 at T/2 (the
     ``temporal_pool`` model's) at both ``n`` and TRAIN_CLIPS."""
-    return ([(k, T) + s[:3] for k in (n, TRAIN_CLIPS) for s in SITES] +
+    return ([(k, T) + s[:3] for k in (n, TRAIN_CLIPS) + SERVE_CLIPS
+             for s in SITES] +
             [(RUN_CLIPS, T) + s[:3] for s in SITES + NV_SITES] +
             [(n, T) + s[:3] for s in RAGGED + ROUTE_SHAPES] +
             [(n,) + s for s in T_SHAPES] +
@@ -2131,6 +2184,520 @@ def loop_test_mtmm_sd(torch, tmp, joint):
 
 
 # ---------------------------------------------------------------------------
+# the thirteenth slice: the serving surfaces (the on-device resize, the AOT
+# artifact with the kernels as custom ops, the cascade, the stream)
+# ---------------------------------------------------------------------------
+
+def preprocess_phase(torch, seed):
+    """The on-device resize: ``preprocess_eval_batch`` on the card against
+    the port on the CPU, normalized f32, one request batch of frames
+    (VIDEOS x CLIPS x T) at each of PREPROCESS_GEOMS, within
+    PREPROCESS_TOL; its bf16 time a request batch on the card beside."""
+    from ehgr_tpu_torch.ops.preprocess_device import preprocess_eval_batch
+
+    rng = np.random.default_rng(seed + 13)
+    rows = []
+    for (h, w), square, scale, crop in PREPROCESS_GEOMS:
+        x = rng.integers(0, 256, (VIDEOS, CLIPS, T, h, w, 3), dtype=np.uint8)
+        kw = dict(scale_size=scale, crop_size=crop, square_resize=square)
+        want = preprocess_eval_batch(torch.from_numpy(x),
+                                     dtype=torch.float32, **kw)
+        xd = torch.from_numpy(x).cuda()
+        got = preprocess_eval_batch(xd, dtype=torch.float32, **kw)
+        err = (got.cpu() - want).abs().max().item()
+        r = dict(frames=[h, w], square_resize=square, scale=scale, crop=crop,
+                 shape=list(got.shape), max_abs_err=err, tol=PREPROCESS_TOL,
+                 frames_per_call=VIDEOS * CLIPS * T,
+                 ms_bf16=_time_ms(torch, lambda: preprocess_eval_batch(
+                     xd, dtype=torch.bfloat16, **kw)))
+        rows.append(r)
+        print("preprocess " + json.dumps(r), flush=True)
+        if tuple(got.shape) != (VIDEOS, CLIPS, T, crop, crop, 3) or \
+                tuple(want.shape) != tuple(got.shape) or \
+                not err <= PREPROCESS_TOL:
+            raise AssertionError(f"preprocess: {r}")
+    return rows
+
+
+# the process that loads the artifacts: it imports ehgr_tpu_torch.serve
+# (and through it the kernels' registration) and nothing of the models;
+# argv[1] is a JSON spec: artifacts [name, path, kind, inputs], the input
+# files, how many of them are request batches and the passes over those
+# that are timed
+SERVE_CHILD = r"""
+import json, sys, time
+import numpy as np
+import torch
+from ehgr_tpu_torch.serve import load_artifact
+from ehgr_tpu_torch.serve.export import graph_ops
+from ehgr_tpu_torch.ops.kernels.registry import OPS
+
+
+def counts():
+    st, ap, pr, ts, i8 = (OPS["ehgr::" + k] for k in (
+        "action_stats", "action_apply", "action_prologue", "tsm_shift",
+        "int8_conv"))
+    return {"action_stats": st.launches,
+            "action_stats_window": st.route_launches["window"],
+            "action_apply": ap.launches,
+            "action_apply_strip": ap.route_launches["strip"],
+            "action_prologue": pr.launches,
+            "action_prologue_window": pr.route_launches["window"],
+            "tsm_shift": ts.launches, "tsm_shift_reverse": ts.reverse_launches,
+            "int8_conv": i8.launches}
+
+
+spec = json.loads(sys.argv[1])
+data = [np.load(p) for p in spec["inputs"]]
+out = {}
+for name, path, kind, used in spec["artifacts"]:
+    t0 = time.perf_counter()
+    fn, manifest = load_artifact(path)
+    load_s = time.perf_counter() - t0
+    xs = [data[i] for i in used]
+    if kind == "clip":
+        xs = [x.reshape((-1,) + x.shape[2:]) for x in xs]
+    fn(xs[0])
+    torch.cuda.synchronize()
+    calls, probs = [], {}
+    for i, x in enumerate(xs):
+        before = counts()
+        y = fn(x)
+        torch.cuda.synchronize()
+        after = counts()
+        calls.append(dict(batch=int(x.shape[0]),
+                          launches={k: after[k] - before[k] for k in after}))
+        probs["p%d" % i] = y.float().cpu().numpy()
+    np.savez(path + ".probs.npz", **probs)
+    req = xs[:spec["requests"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(spec["passes"]):
+        for x in req:
+            fn(x)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    clips = spec["passes"] * sum(
+        int(np.prod(x.shape[:2 if kind == "video" else 1])) for x in req)
+    out[name] = dict(load_s=load_s, manifest=manifest,
+                     graph_ops=graph_ops(fn.program), calls=calls,
+                     seconds=wall, clips_per_s=clips / wall)
+    del fn
+mods = sorted(m for m in sys.modules if m.startswith("ehgr_tpu_torch"))
+out["_modules"] = dict(
+    port=mods, models=[m for m in mods if m.startswith(
+        ("ehgr_tpu_torch.models", "ehgr_tpu_torch.eval",
+         "ehgr_tpu_torch.train"))],
+    jax=sorted(m for m in sys.modules
+               if m.split(".")[0] in ("jax", "jaxlib", "flax", "ehgr_tpu")))
+print("SERVE_CHILD " + json.dumps(out), flush=True)
+"""
+
+
+def _ops_of(want):
+    """The ``ehgr::`` graph nodes of a forward launching ``want``."""
+    return {f"ehgr::{k}": v for k, v in want.items()
+            if k in ("action_stats", "action_apply", "action_prologue",
+                     "tsm_shift", "int8_conv")}
+
+
+def export_serve(torch, seed, tmp, checkpoint, batches):
+    """The AOT serving artifact: ``cli.export_serving --videos sym
+    --action_fused mega`` on the serve model's weights (``checkpoint``,
+    read back as ``test_ego`` reads them), then ``--clip_scorer``,
+    ``--quantize static`` (calibrated on noise from the seed, as the CLI
+    does) and a TSM model (``export_artifact`` on the TSM scorer), each
+    loaded in one fresh process that imports ``ehgr_tpu_torch.serve`` and
+    no model code (SERVE_CHILD): the three request batches, and for the
+    'mega' video artifact and the TSM one batches of 1 and 4 videos too;
+    per forward there the kernels' launches (counted in that process), the
+    graph's ``ehgr::`` nodes, the probabilities against the live scorer
+    (``make_score_fn``; the clip scorer's own module) within ARTIFACT_TOL,
+    the artifact's bytes, export and load seconds, and clips/s over the
+    request batches (DISPATCH_REPS passes) loaded against live."""
+    from ehgr_tpu_torch.cli import export_serving
+    from ehgr_tpu_torch.configs import config_from_args
+    from ehgr_tpu_torch.eval import runner
+    from ehgr_tpu_torch.eval.inference import make_score_fn
+    from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    from ehgr_tpu_torch.serve import export as serve
+
+    frames = [b[0] for b in batches]
+    inputs = frames + [frames[0][:1], np.concatenate(frames[1:])]
+    files = []
+    for i, x in enumerate(inputs):
+        files.append(os.path.join(tmp, f"serve_input{i}.npy"))
+        np.save(files[-1], x)
+    requests = list(range(len(frames)))
+    every = list(range(len(inputs)))
+    base = ["--preset", "ego_baseline", "--checkpoint_path", checkpoint,
+            "--action_fused", "mega"]
+    # name, the CLI's extra flags (None: the TSM scorer), kind, inputs,
+    # launches a forward
+    variants = [("video_mega", [], "video", every, MEGA_FORWARD),
+                ("clip_mega", ["--clip_scorer"], "clip", requests,
+                 MEGA_FORWARD),
+                ("video_int8_static", ["--quantize", "static"], "video",
+                 requests, INT8_FORWARD),
+                ("video_tsm", None, "video", every, {"tsm_shift": 16})]
+    live, out = {}, {}
+    for name, extra, kind, used, want in variants:
+        path = os.path.join(tmp, name + ".ehgrtx")
+        t0 = time.perf_counter()
+        if extra is None:
+            model = build_tsm_model(torch, seed, frames[0])
+            program = serve.export_artifact(
+                serve.make_video_scorer(model, scale_size=CROP,
+                                        crop_size=CROP),
+                serve.symbolic_batch((VIDEOS, CLIPS, T, CROP, CROP, 3)))
+            nbytes = serve.save_artifact(path, program, {
+                "arch": "tsn", "temporal": "tsm", "clip_scorer": False,
+                "num_segments": T, "crop_size": CROP, "scale_size": CROP,
+                "num_classes": CLASSES})
+            del program
+        else:
+            res = export_serving.main(["--out", path, "--videos", "sym",
+                                       "--clip_num", str(CLIPS), "--device",
+                                       "cuda", *base, *extra])
+            nbytes = res["bytes"]
+            model, _ = runner._build_model(config_from_args(
+                [f for f in base + extra if f != "--clip_scorer"]), "tsn",
+                "cuda")
+        torch.cuda.synchronize()
+        export_s = time.perf_counter() - t0
+        if kind == "clip":
+            clip_scorer = serve.make_clip_scorer(model, mean=IMAGENET_MEAN,
+                                                 std=IMAGENET_STD)
+
+            @torch.inference_mode()
+            def score(x, _s=clip_scorer):
+                return _s(torch.as_tensor(x.reshape((-1,) + x.shape[2:]))
+                          .cuda())
+        else:
+            score = make_score_fn(model, device="cuda", crop_size=CROP,
+                                  dtype_name="bfloat16")
+        score(inputs[0])
+        probs = [score(inputs[i]).float().cpu().numpy() for i in used]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DISPATCH_REPS):
+            for i in requests:
+                score(inputs[i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        live[name] = dict(probs=probs, export_s=export_s, bytes=nbytes,
+                          clips_per_s=DISPATCH_REPS * len(requests) *
+                          VIDEOS * CLIPS / wall)
+        del model, score
+        if kind == "clip":
+            del clip_scorer
+        torch.cuda.empty_cache()
+
+    spec = dict(inputs=files, requests=len(requests), passes=DISPATCH_REPS,
+                artifacts=[[name, os.path.join(tmp, name + ".ehgrtx"), kind,
+                            used] for name, _, kind, used, _ in variants])
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD,
+                           json.dumps(spec)], cwd=here, capture_output=True,
+                          text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    line = [ln for ln in proc.stdout.splitlines()
+            if ln.startswith("SERVE_CHILD ")]
+    if proc.returncode != 0 or not line:
+        raise AssertionError(f"export_serve: the loading process failed "
+                             f"({proc.returncode}):\n{proc.stderr[-4000:]}")
+    child = json.loads(line[-1][len("SERVE_CHILD "):])
+    mods = child.pop("_modules")
+    print("export_serve_child_modules " + json.dumps(mods), flush=True)
+    if mods["models"] or mods["jax"] or "ehgr_tpu_torch.serve" not in \
+            mods["port"]:
+        raise AssertionError(f"export_serve: the loading process imported "
+                             f"{mods}")
+    for name, _, kind, used, want in variants:
+        c, lv = child[name], live[name]
+        loaded = np.load(os.path.join(tmp, name + ".ehgrtx.probs.npz"))
+        errs = [float(np.abs(loaded[f"p{i}"] - p).max())
+                for i, p in enumerate(lv["probs"])]
+        per_call = [k["launches"] for k in c["calls"]]
+        want_call = {k: want.get(k, 0) for k in per_call[0]}
+        ops = _ops_of(want)
+        launches = {k: sum(p[k] for p in per_call) for k in per_call[0]}
+        out[name] = dict(
+            kind=kind, bytes=lv["bytes"], export_s=lv["export_s"],
+            load_s=c["load_s"], in_shape=c["manifest"]["in_shape"],
+            device=c["manifest"]["device"], graph_ops=c["graph_ops"],
+            manifest_ops=c["manifest"]["ops"],
+            batches=[k["batch"] for k in c["calls"]],
+            launches_per_forward=per_call[0], launches=launches,
+            max_abs_prob_diff=max(errs), tol=ARTIFACT_TOL,
+            loaded_clips_per_s=c["clips_per_s"],
+            live_clips_per_s=lv["clips_per_s"])
+        print(f"export_serve_{name} " + json.dumps(out[name]), flush=True)
+        if c["graph_ops"] != ops or c["manifest"]["ops"] != ops or \
+                any(p != want_call for p in per_call) or \
+                len(per_call) != len(used) or not max(errs) <= ARTIFACT_TOL:
+            raise AssertionError(f"export_serve {name}: graph "
+                                 f"{c['graph_ops']} (want {ops}), launches "
+                                 f"{per_call} (want {want_call} each), prob "
+                                 f"diffs {errs}")
+        for j, i in enumerate(used):
+            p = loaded[f"p{j}"]
+            rows = len(inputs[i]) * (CLIPS if kind == "clip" else 1)
+            if p.shape != (rows, CLASSES) or \
+                    not np.isfinite(p).all() or \
+                    np.abs(p.sum(-1) - 1).max() > 1e-2:
+                raise AssertionError(f"export_serve {name}: bad "
+                                     f"probabilities at input {i}")
+    out["child_s"] = child_s
+    return out
+
+
+def serve_dispatch(torch, model, batches):
+    """The cost of the custom ops' dispatch on the serve path: the 'mega'
+    scorer over the request batches (DISPATCH_REPS passes a turn) with each
+    ACTION kernel called through its op (``torch.ops.ehgr.*``, this tree)
+    and through its CUDA implementation directly, as the wrappers launched
+    before the kernels became ops; after a pass to warm up, in turns op,
+    direct, direct, op, twice; clips/s of each turn."""
+    from ehgr_tpu_torch.eval.inference import make_score_fn
+    from ehgr_tpu_torch.ops.kernels import action_mega as mega
+
+    score = make_score_fn(model, device="cuda", crop_size=CROP,
+                          dtype_name="bfloat16")
+    direct = {"stats_op": mega._stats_cuda, "apply_op": mega._apply_cuda}
+    for frames, _ in batches:
+        score(frames)
+    torch.cuda.synchronize()
+    turns = []
+    for turn in ("op", "direct", "direct", "op") * 2:
+        saved = {k: getattr(mega, k) for k in direct}
+        if turn == "direct":
+            for k, fn in direct.items():
+                setattr(mega, k, fn)
+        try:
+            reset_counters()
+            t0 = time.perf_counter()
+            for _ in range(DISPATCH_REPS):
+                for frames, _ in batches:
+                    score(frames)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+        finally:
+            for k, fn in saved.items():
+                setattr(mega, k, fn)
+        forwards = DISPATCH_REPS * len(batches)
+        if launches["action_stats_window"] != 16 * forwards or \
+                launches["action_apply_strip"] != 16 * forwards:
+            raise AssertionError(f"serve_dispatch {turn}: {launches}")
+        turns.append(dict(turn=turn, clips_per_s=forwards * VIDEOS * CLIPS /
+                          wall, ms_per_forward=wall / forwards * 1e3))
+    op = statistics.median(t["clips_per_s"] for t in turns
+                           if t["turn"] == "op")
+    di = statistics.median(t["clips_per_s"] for t in turns
+                           if t["turn"] == "direct")
+    out = dict(turns=turns, op_clips_per_s=op, direct_clips_per_s=di,
+               op_vs_direct_pct=100.0 * (op / di - 1.0))
+    print("serve_dispatch " + json.dumps(out), flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def _watched_stages(torch, cascade, calls, raw):
+    """``cascade.build_cascade_score_fns`` with each stage's scorer timed
+    (synchronized) and its launches counted per call into ``calls["exit"]``
+    / ``calls["full"]``; the unwatched pair is kept in ``raw``."""
+    build = cascade.build_cascade_score_fns
+
+    def watch(stage, fn):
+        def run(frames):
+            torch.cuda.synchronize()
+            before = _launches()
+            t0 = time.perf_counter()
+            p = fn(frames)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            after = _launches()
+            calls[stage].append(dict(
+                videos=int(frames.shape[0]),
+                clips=int(frames.shape[0] * frames.shape[1]), s=dt,
+                launches={k: v - before[k] for k, v in after.items()}))
+            return p
+        return run
+
+    def watched(*a, **k):
+        raw[:] = build(*a, **k)
+        return watch("exit", raw[0]), watch("full", raw[1])
+
+    cascade.build_cascade_score_fns = watched
+    try:
+        yield
+    finally:
+        cascade.build_cascade_score_fns = build
+
+
+def cascade_phase(torch, sd, batches):
+    """A main path: ``cli.test_cascade --preset ego_sd --synthetic
+    --checkpoint_path <loop_sd best> --cascade_exit 1`` at full width (32
+    synthetic videos x 10 clips, one video a batch) in ``--action_fused
+    mega`` and ``prologue``: each stage's launches counted apart at every
+    call (exit, ``tsn_middle1``: 3 + 3 / 3 a forward; full, ``tsn``: 16 +
+    16 / 16), each stage's clips/s, the curve with the effective rate from
+    those and the CLI's two-pass check; then on the three request batches
+    as one batch of 6 videos, ``execute_cascade`` at the median exit
+    confidence (3 videos escalate, padded to the bucket of 4) against the
+    predictions of ``collect_scores`` + the sweep's rule."""
+    from ehgr_tpu_torch.cli import test_cascade
+    from ehgr_tpu_torch.eval import cascade
+
+    best = _ckpt(sd, "sd", "best")
+    frames = np.concatenate([b[0] for b in batches])
+    labels = np.concatenate([b[1] for b in batches])
+    out = {}
+    for mode, want_exit, want_full in (("mega", EXIT1_MEGA, MEGA_FORWARD),
+                                       ("prologue", EXIT1_PROLOGUE,
+                                        PROLOGUE_FORWARD)):
+        calls, raw, seen = {"exit": [], "full": []}, [], []
+        sweep = cascade.sweep_thresholds
+
+        def recording(scores, *a, **k):
+            seen.append(scores)
+            return sweep(scores, *a, **k)
+
+        with _watched_stages(torch, cascade, calls, raw):
+            cascade.sweep_thresholds = recording
+            try:
+                reset_counters()
+                t0 = time.perf_counter()
+                res = test_cascade.main(
+                    ["--preset", "ego_sd", "--synthetic",
+                     "--synthetic_videos", "32", "--checkpoint_path", best,
+                     "--cascade_exit", "1", "--action_fused", mode,
+                     "--device", "cuda"])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = _launches()
+            finally:
+                cascade.sweep_thresholds = sweep
+        for stage, want in (("exit", want_exit), ("full", want_full)):
+            bad = [c["launches"] for c in calls[stage]
+                   if c["launches"] != {k: want.get(k, 0)
+                                        for k in c["launches"]}]
+            if bad or not calls[stage]:
+                raise AssertionError(f"cascade {mode} {stage}: launches "
+                                     f"{bad[:2]} (want {want} a call)")
+        n = res["n_videos"]
+        rates = {}
+        for stage in ("exit", "full"):
+            cs = []                                # collect_scores' calls
+            while sum(c["videos"] for c in cs) < n:
+                cs.append(calls[stage][len(cs)])
+            rates[stage] = sum(c["clips"] for c in cs) / sum(
+                c["s"] for c in cs)
+        curve = cascade.sweep_thresholds(seen[0], cascade.DEFAULT_THRESHOLDS,
+                                         rates["exit"], rates["full"])
+        # the two-pass path against the sweep's rule on one request batch
+        scores = cascade.collect_scores(raw[0], raw[1], [(frames, labels)])
+        conf = scores["p_exit"].max(-1)
+        tau = float(np.median(conf))
+        run = cascade.execute_cascade(raw[0], raw[1], frames, tau)
+        esc = conf < tau
+        want = np.where(esc, scores["p_full"].argmax(-1),
+                        scores["p_exit"].argmax(-1))
+        check = dict(videos=int(len(frames)), threshold=tau,
+                     escalated=int(esc.sum()),
+                     bucket=cascade.bucket_size(int(esc.sum()), len(frames)),
+                     same_escalations=bool((run["escalated"] == esc).all()),
+                     same_predictions=bool((run["pred"] == want).all()),
+                     max_abs_prob_diff=float(np.abs(
+                         run["probs"] - np.where(esc[:, None],
+                                                 scores["p_full"],
+                                                 scores["p_exit"])).max()))
+        out[mode] = dict(
+            mode=mode, n_videos=n, wall_s=wall, launches=launches,
+            exit_launches_per_forward=calls["exit"][0]["launches"],
+            full_launches_per_forward=calls["full"][0]["launches"],
+            exit_forwards=len(calls["exit"]),
+            full_forwards=len(calls["full"]),
+            exit_clips_per_s=rates["exit"], full_clips_per_s=rates["full"],
+            top1_exit_only=res["top1_exit_only"],
+            top1_full_only=res["top1_full_only"], curve=curve,
+            cli_curve=res["curve"], two_pass_check=res["two_pass_check"],
+            request_check=check)
+        print(f"cascade_{mode} " + json.dumps(out[mode]), flush=True)
+        if not (check["same_escalations"] and check["same_predictions"]) \
+                or check["max_abs_prob_diff"] > ARTIFACT_TOL or \
+                not 0 < check["escalated"] < len(frames) or \
+                [r["top1"] for r in curve] != [r["top1"] for r in
+                                               res["curve"]]:
+            raise AssertionError(f"cascade {mode}: {check}")
+        del raw[:]
+        torch.cuda.empty_cache()
+    return out
+
+
+def stream_phase(torch, sd):
+    """A main path: ``cli.stream_demo --preset ego_sd --synthetic --frames
+    256 --action_fused mega`` on the SD ``best``, with ``--cascade_exit 0``
+    (``tsn``: 16 + 16 launches a window) and ``1`` (``tsn_middle1``: 3 +
+    3): its fps line, each window's latency (the scorer call, uint8 clip
+    in, numpy probabilities out) as p50 / p99, the first window apart, and
+    the launches of every window."""
+    from ehgr_tpu_torch.cli import stream_demo
+    from ehgr_tpu_torch.eval import streaming
+
+    best = _ckpt(sd, "sd", "best")
+    out = {}
+    for k, want in ((0, MEGA_FORWARD), (1, EXIT1_MEGA)):
+        windows = []
+        make = streaming.make_stream_score_fn
+
+        def watched(*a, **kw):
+            fn = make(*a, **kw)
+
+            def timed(clip):
+                before = _launches()
+                t0 = time.perf_counter()
+                p = fn(clip)                    # numpy: synchronous
+                dt = time.perf_counter() - t0
+                after = _launches()
+                windows.append(dict(s=dt, launches={
+                    n: v - before[n] for n, v in after.items()}))
+                return p
+            return timed
+
+        streaming.make_stream_score_fn = watched
+        try:
+            reset_counters()
+            res = stream_demo.main(
+                ["--preset", "ego_sd", "--synthetic", "--checkpoint_path",
+                 best, "--frames", str(STREAM_FRAMES), "--cascade_exit",
+                 str(k), "--action_fused", "mega", "--device", "cuda"])
+            launches = _launches()
+        finally:
+            streaming.make_stream_score_fn = make
+        lat = [w["s"] * 1e3 for w in windows]
+        want_w = {n: want.get(n, 0) for n in windows[0]["launches"]}
+        out[f"exit{k}"] = r = dict(
+            arch=res["arch"], frames=STREAM_FRAMES, fps=res["fps"],
+            events=res["events"], windows=len(windows),
+            window_ms_p50=float(np.percentile(lat, 50)),
+            window_ms_p99=float(np.percentile(lat, 99)),
+            window_ms_first=lat[0],
+            window_ms_p99_after_first=float(np.percentile(lat[1:], 99)),
+            launches_per_window=windows[0]["launches"], launches=launches)
+        print(f"stream_exit{k} " + json.dumps(r), flush=True)
+        if len(windows) != STREAM_FRAMES // 8 or any(
+                w["launches"] != want_w for w in windows):
+            raise AssertionError(f"stream exit {k}: {len(windows)} windows, "
+                                 f"launches {windows[0]['launches']} (want "
+                                 f"{want_w} each)")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # the eleventh slice: int8 inference (QuantConv, calibration, int8_conv)
 # ---------------------------------------------------------------------------
 
@@ -3177,6 +3744,7 @@ def main(argv=None) -> int:
     ego_pth = os.path.join(tmp, "ego_serve.pth")
     torch.save({"state_dict": model.state_dict()}, ego_pth)
     served = phase("serve", serve, torch, model, batches, MEGA_FORWARD)
+    dispatch = phase("serve_dispatch", serve_dispatch, torch, model, batches)
     logits = compare_logits(torch, model, plain, batches[0][0])
     del plain
     prof = profile_forward(torch, model, batches[0][0])
@@ -3234,6 +3802,15 @@ def main(argv=None) -> int:
     l_sd, sd_res = phase("loop_sd", loop_sd, torch, tmp, mtmm_res)
     l_resume = phase("loop_resume", loop_resume, torch, tmp, mtmm_res)
     l_test_sd = phase("loop_test_sd", loop_test_sd, torch, tmp, sd_res)
+
+    # the serving surfaces: the on-device resize, the AOT artifact (kernels
+    # as custom ops, loaded in a process without model code), the cascade
+    # and the stream on the SD best
+    prep = phase("preprocess", preprocess_phase, torch, args.seed)
+    exported = phase("export_serve", export_serve, torch, args.seed, tmp,
+                     ego_pth, batches)
+    casc = phase("cascade", cascade_phase, torch, sd_res, batches)
+    stream = phase("stream", stream_phase, torch, sd_res)
     remat = phase("remat", remat_step, torch, args.seed)
 
     # the joint stage and the TSN options: the joint train step, its fp32
@@ -3274,7 +3851,11 @@ def main(argv=None) -> int:
              "loop_mtmm_sd": l_joint, "loop_test_mtmm_sd": l_test_joint,
              "int8_serve": i8_served,
              "int8_serve_dynamic": i8_served["dynamic"],
-             "int8_test": i8_test, "int8_test_dynamic": i8_test["dynamic"]}
+             "int8_test": i8_test, "int8_test_dynamic": i8_test["dynamic"],
+             **{f"export_{k}": v for k, v in exported.items()
+                if isinstance(v, dict)},
+             **{f"cascade_{k}": v for k, v in casc.items()},
+             **{f"stream_{k}": v for k, v in stream.items()}}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -3293,6 +3874,9 @@ def main(argv=None) -> int:
                       "loop_mtmm_sd": l_joint,
                       "loop_test_mtmm_sd": l_test_joint,
                       "int8_serve": i8_served, "int8_test": i8_test,
+                      "serve_dispatch": dispatch, "preprocess": prep,
+                      "export_serve": exported, "cascade": casc,
+                      "stream": stream,
                       "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)

@@ -13,10 +13,13 @@ built with ``XS = true``, on the same route, ``_stats_route``).  ``pool``
 and ``mc`` are summed in f32 and divided at the end, as ``action_stats``
 does; the TPU kernel summed ``pool`` in the input dtype.
 
-The wrapper takes the plain version for CPU tensors only; for CUDA tensors
-it launches its kernel or raises.  ``action_prologue.launches`` counts
-kernel launches (the plain path does not count), ``route_launches`` each
-route's.
+The kernel is the custom op ``ehgr::action_prologue`` (CPU: the plain
+version; CUDA: the launch, with its route, scratch and counters; a fake
+implementation for ``torch.export``), which the wrapper calls after its
+checks, as ``action_mega.py`` does.  So the plain version serves CPU tensors
+only; a CUDA tensor launches the kernel or raises.
+``action_prologue.launches`` counts kernel launches (the plain path does
+not count), ``route_launches`` each route's.
 """
 
 from __future__ import annotations
@@ -48,13 +51,26 @@ def action_prologue(x4: torch.Tensor, w_shift: torch.Tensor,
                                torch.Tensor]:
     """``x4 [N,T,S,C], w_shift [3,C], w_p3 [C,Cr]`` -> ``(x_shift
     [N,T,S,C], mc [N,T,S,1], pooled_mean [N,T,C], x3 [N,T,S,Cr])``."""
-    n, t, s, c = x4.shape
-    if w_shift.shape != (3, c) or w_p3.dim() != 2 or w_p3.shape[0] != c:
+    c = x4.shape[-1]
+    if x4.dim() != 4 or w_shift.shape != (3, c) or w_p3.dim() != 2 or \
+            w_p3.shape[0] != c:
         raise ValueError(f"action_prologue: shapes {tuple(x4.shape)}, "
                          f"{tuple(w_shift.shape)}, {tuple(w_p3.shape)}")
     check_operands("action_prologue", x4, w_shift=w_shift, w_p3=w_p3)
-    if x4.device.type == "cpu":
-        return action_prologue_plain(x4, w_shift, w_p3)
+    return prologue_op(x4, w_shift, w_p3)
+
+
+@torch.library.custom_op(
+    "ehgr::action_prologue", mutates_args=(), device_types="cpu",
+    schema="(Tensor x4, Tensor w_shift, Tensor w_p3) -> "
+           "(Tensor, Tensor, Tensor, Tensor)")
+def prologue_op(x4, w_shift, w_p3):
+    return action_prologue_plain(x4, w_shift, w_p3)
+
+
+@prologue_op.register_kernel("cuda")
+def _prologue_cuda(x4, w_shift, w_p3):
+    n, t, s, c = x4.shape
     cr = w_p3.shape[1]
     route = _stats_route(x4.dtype, c, cr, _aligned(x4, w_shift, w_p3))
     lib = "action_stats" if route == "window" else "action_mega"
@@ -71,6 +87,13 @@ def action_prologue(x4: torch.Tensor, w_shift: torch.Tensor,
     action_prologue.launches += 1
     action_prologue.route_launches[route] += 1
     return xs, mc, pool, x3
+
+
+@prologue_op.register_fake
+def _prologue_fake(x4, w_shift, w_p3):
+    n, t, s, c = x4.shape
+    return (torch.empty_like(x4), x4.new_empty((n, t, s, 1)),
+            x4.new_empty((n, t, c)), x4.new_empty((n, t, s, w_p3.shape[1])))
 
 
 action_prologue.launches = 0

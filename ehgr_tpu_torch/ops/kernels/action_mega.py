@@ -11,9 +11,15 @@ beside their plain PyTorch versions (counterpart of
   sweep 2  ``action_apply``  — read ``x`` again, recompute the shift and
       write only ``(x_shift * (g1 + gch)) @ W_net [N,T,S,F]``.
 
-A wrapper takes the plain version for CPU tensors only; for CUDA tensors it
-launches its kernel or raises.  ``<wrapper>.launches`` counts kernel
-launches (the plain path does not count).
+Each kernel is a ``torch.library`` custom op (``ehgr::action_stats``,
+``ehgr::action_apply``), so ``torch.export`` keeps it as one opaque node:
+its CPU implementation is the plain version, its CUDA implementation the
+launch (route, scratch and counters live there, out of any traced code),
+and a fake implementation gives the output shapes.  The wrapper checks the
+operands and calls the op, eagerly or under export alike.  So the plain
+version serves CPU tensors only; a CUDA tensor launches the kernel or
+raises.  ``<wrapper>.launches`` counts kernel launches (the plain path does
+not count).
 """
 
 from __future__ import annotations
@@ -73,13 +79,26 @@ def action_stats(x4: torch.Tensor, w_shift: torch.Tensor, w_p3: torch.Tensor
     ``(mc [N,T,S,1], pooled_mean [N,T,C], x3 [N,T,S,Cr])``.
     ``action_stats.route_launches`` counts the launches of each route of
     ``_stats_route``."""
-    n, t, s, c = x4.shape
-    if w_shift.shape != (3, c) or w_p3.dim() != 2 or w_p3.shape[0] != c:
+    c = x4.shape[-1]
+    if x4.dim() != 4 or w_shift.shape != (3, c) or w_p3.dim() != 2 or \
+            w_p3.shape[0] != c:
         raise ValueError(f"action_stats: shapes {tuple(x4.shape)}, "
                          f"{tuple(w_shift.shape)}, {tuple(w_p3.shape)}")
     check_operands("action_stats", x4, w_shift=w_shift, w_p3=w_p3)
-    if x4.device.type == "cpu":
-        return action_stats_plain(x4, w_shift, w_p3)
+    return stats_op(x4, w_shift, w_p3)
+
+
+@torch.library.custom_op(
+    "ehgr::action_stats", mutates_args=(), device_types="cpu",
+    schema="(Tensor x4, Tensor w_shift, Tensor w_p3) -> "
+           "(Tensor, Tensor, Tensor)")
+def stats_op(x4, w_shift, w_p3):
+    return action_stats_plain(x4, w_shift, w_p3)
+
+
+@stats_op.register_kernel("cuda")
+def _stats_cuda(x4, w_shift, w_p3):
+    n, t, s, c = x4.shape
     cr = w_p3.shape[1]
     route = _stats_route(x4.dtype, c, cr, _aligned(x4, w_shift, w_p3))
     lib = "action_stats" if route == "window" else "action_mega"
@@ -95,6 +114,13 @@ def action_stats(x4: torch.Tensor, w_shift: torch.Tensor, w_p3: torch.Tensor
     action_stats.launches += 1
     action_stats.route_launches[route] += 1
     return mc, pool, x3
+
+
+@stats_op.register_fake
+def _stats_fake(x4, w_shift, w_p3):
+    n, t, s, c = x4.shape
+    return (x4.new_empty((n, t, s, 1)), x4.new_empty((n, t, c)),
+            x4.new_empty((n, t, s, w_p3.shape[1])))
 
 
 action_stats.launches = 0
@@ -153,8 +179,20 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
             f", {tuple(g1.shape)}, {tuple(gch.shape)}, {tuple(w_net.shape)}")
     check_operands("action_apply", x4, w_shift=w_shift, g1=g1, gch=gch,
                    w_net=w_net)
-    if x4.device.type == "cpu":
-        return action_apply_plain(x4, w_shift, g1, gch, w_net)
+    return apply_op(x4, w_shift, g1, gch, w_net)
+
+
+@torch.library.custom_op(
+    "ehgr::action_apply", mutates_args=(), device_types="cpu",
+    schema="(Tensor x4, Tensor w_shift, Tensor g1, Tensor gch, "
+           "Tensor w_net) -> Tensor")
+def apply_op(x4, w_shift, g1, gch, w_net):
+    return action_apply_plain(x4, w_shift, g1, gch, w_net)
+
+
+@apply_op.register_kernel("cuda")
+def _apply_cuda(x4, w_shift, g1, gch, w_net):
+    n, t, s, c = x4.shape
     f = w_net.shape[1]
     route = _apply_route(x4.dtype, c, f, _aligned(x4, w_shift, gch, w_net))
     out = x4.new_empty((n, t, s, f))
@@ -169,6 +207,12 @@ def action_apply(x4: torch.Tensor, w_shift: torch.Tensor, g1: torch.Tensor,
     action_apply.launches += 1
     action_apply.route_launches[route] += 1
     return out
+
+
+@apply_op.register_fake
+def _apply_fake(x4, w_shift, g1, gch, w_net):
+    n, t, s, _ = x4.shape
+    return x4.new_empty((n, t, s, w_net.shape[1]))
 
 
 action_apply.launches = 0

@@ -18,9 +18,12 @@ reach device memory) and reads ``xs`` through its pointer, so the scale
 never comes back to the host.  It reads ``x`` channels_last and the weight
 as ``[Cout, KH, KW, Cin]`` (K contiguous); it takes ``Cin % 16 == 0`` and
 ``Cout % 8 == 0`` (every ResNet-50/101 block conv) and raises otherwise.
-The wrapper takes the plain version for CPU tensors only; for CUDA tensors
-it launches its kernel or raises.  ``int8_conv.launches`` counts kernel
-launches (the plain path does not count).
+The kernel is the custom op ``ehgr::int8_conv`` (CPU: the plain version;
+CUDA: the launch and its counter; a fake implementation for
+``torch.export``), which the wrapper calls after its checks.  So the plain
+version serves CPU tensors only; a CUDA tensor launches the kernel or
+raises.  ``int8_conv.launches`` counts kernel launches (the plain path
+does not count).
 """
 
 from __future__ import annotations
@@ -92,8 +95,19 @@ def int8_conv(x: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
     Cin, KH, KW]`` int8, int32 sums, times ``xs * ws`` -> ``[N, Cout, Ho,
     Wo]`` in ``x``'s dtype, channels_last (see the module docstring)."""
     _check(x, xs, wq, ws)
-    if x.device.type == "cpu":
-        return int8_conv_plain(x, xs, wq, ws, stride, padding)
+    return conv_op(x, xs, wq, ws, stride, padding)
+
+
+@torch.library.custom_op(
+    "ehgr::int8_conv", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor xs, Tensor wq, Tensor ws, int stride, "
+           "int padding) -> Tensor")
+def conv_op(x, xs, wq, ws, stride, padding):
+    return int8_conv_plain(x, xs, wq, ws, stride, padding)
+
+
+@conv_op.register_kernel("cuda")
+def _conv_cuda(x, xs, wq, ws, stride, padding):
     n, cin, h, w = x.shape
     cout, _, kh, kw = wq.shape
     if cin % 16 or cout % 8:
@@ -120,6 +134,15 @@ def int8_conv(x: torch.Tensor, xs: torch.Tensor, wq: torch.Tensor,
            xs.data_ptr(), wt.data_ptr(), ws.data_ptr(), out.data_ptr(), n, h,
            w, cin, cout, kh, kw, stride, padding, ho, wo)
     int8_conv.launches += 1
+    return out.permute(0, 3, 1, 2)
+
+
+@conv_op.register_fake
+def _conv_fake(x, xs, wq, ws, stride, padding):
+    n, _, h, w = x.shape
+    cout, _, kh, kw = wq.shape
+    out = x.new_empty((n, _out_size(h, kh, stride, padding),
+                       _out_size(w, kw, stride, padding), cout))
     return out.permute(0, 3, 1, 2)
 
 

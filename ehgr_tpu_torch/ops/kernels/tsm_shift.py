@@ -11,8 +11,10 @@
 same kernel with ``reverse=True``, as the TPU kernel's custom VJP is.  The
 plain version is the port's ``temporal_shift``.
 
-The wrapper takes the plain version for CPU tensors only (any dtype there);
-for CUDA tensors it launches its kernel or raises.  ``tsm_shift.launches``
+The kernel is the custom op ``ehgr::tsm_shift`` (CPU: the plain version,
+any dtype there; CUDA: the launch and its counters; a fake implementation
+for ``torch.export``), which the wrapper calls after its checks.  So a CUDA
+tensor launches the kernel or raises.  ``tsm_shift.launches``
 counts kernel launches, ``tsm_shift.reverse_launches`` those with
 ``reverse=True`` among them (the plain path does not count).
 """
@@ -38,8 +40,18 @@ def tsm_shift(x4: torch.Tensor, fold_div: int = 8,
     if x4.dim() != 4 or fold_div < 1:
         raise ValueError(f"tsm_shift: shape {tuple(x4.shape)}, "
                          f"fold_div {fold_div}")
-    if x4.device.type == "cpu":
-        return tsm_shift_plain(x4, fold_div, reverse)
+    return shift_op(x4, fold_div, reverse)
+
+
+@torch.library.custom_op(
+    "ehgr::tsm_shift", mutates_args=(), device_types="cpu",
+    schema="(Tensor x4, int fold_div, bool reverse) -> Tensor")
+def shift_op(x4, fold_div, reverse):
+    return tsm_shift_plain(x4, fold_div, reverse)
+
+
+@shift_op.register_kernel("cuda")
+def _shift_cuda(x4, fold_div, reverse):
     check_operands("tsm_shift", x4)
     load("tsm_shift")                  # a failed build raises here
     n, t, s, c = x4.shape
@@ -51,6 +63,11 @@ def tsm_shift(x4: torch.Tensor, fold_div: int = 8,
     tsm_shift.launches += 1
     tsm_shift.reverse_launches += int(reverse)
     return y
+
+
+@shift_op.register_fake
+def _shift_fake(x4, fold_div, reverse):
+    return torch.empty_like(x4)
 
 
 tsm_shift.launches = 0

@@ -74,12 +74,20 @@ class WeightCodes:
     """The int8 codes and scales of one weight, made once while the weight
     stays as it is (a new tensor or an in-place change, such as a load or
     an optimizer step, makes them anew): at eval the weights are constants,
-    as JAX folds them at compile."""
+    as JAX folds them at compile, and ``torch.export`` keeps the codes of
+    the last eager call as constants."""
 
     def __init__(self):
         self._key, self._codes = None, None
 
     def __call__(self, w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        if torch.compiler.is_exporting():
+            # ``w`` has no data under torch.export: the codes of the last
+            # eager call become the exported program's constants
+            if self._codes is None:
+                raise RuntimeError("int8 weight codes are made by an eager "
+                                   "call: run the model once before export")
+            return self._codes
         key = (w.data_ptr(), w.device, w._version)
         if key != self._key:
             with torch.no_grad():

@@ -18,7 +18,8 @@ import torch
 
 import ehgr_tpu_torch
 from ehgr_tpu_torch.ops.kernels import (action_fused, action_mega, build,
-                                        int8_conv, shift, tsm_shift)
+                                        int8_conv, registry, shift,
+                                        tsm_shift)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "ehgr_tpu_torch"
@@ -60,7 +61,14 @@ def test_every_module_is_found():
                  "ehgr_tpu_torch.utils.metrics_log",
                  "ehgr_tpu_torch.cli.train",
                  "ehgr_tpu_torch.cli.train_mtmm",
-                 "ehgr_tpu_torch.cli.train_sd"):
+                 "ehgr_tpu_torch.cli.train_sd",
+                 "ehgr_tpu_torch.ops.kernels.registry",
+                 "ehgr_tpu_torch.serve.export",
+                 "ehgr_tpu_torch.eval.cascade",
+                 "ehgr_tpu_torch.eval.streaming",
+                 "ehgr_tpu_torch.cli.export_serving",
+                 "ehgr_tpu_torch.cli.test_cascade",
+                 "ehgr_tpu_torch.cli.stream_demo"):
         assert want in mods
 
 
@@ -106,11 +114,22 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 class _OnCuda(torch.Tensor):
     """A CPU tensor that reports ``cuda:0``, so a wrapper takes its CUDA
-    branch on a machine without a card."""
+    branch on a machine without a card: its checks see ``cuda:0``, and a
+    call of one of the port's custom ops (``ehgr::*``, whose dispatcher
+    keys on the CPU storage) goes to the op's CUDA implementation."""
 
     @property
     def device(self):
         return torch.device("cuda", 0)
+
+    @classmethod
+    def __torch_function__(cls, func, types, args=(), kwargs=None):
+        if isinstance(func, torch._ops.OpOverload) and \
+                func.namespace == "ehgr":
+            return func.redispatch(
+                torch._C.DispatchKeySet(torch._C.DispatchKey.CUDA), *args,
+                **(kwargs or {}))
+        return super().__torch_function__(func, types, args, kwargs)
 
 
 def _cuda(*shape):
@@ -186,4 +205,58 @@ def test_cuda_tensor_with_failed_build_raises(monkeypatch, kernel):
     before = wrapper.launches
     with pytest.raises(RuntimeError, match="nvcc failed"):
         wrapper(*args)
+    assert wrapper.launches == before
+
+
+# op -> (operands of a kernel launch, the wrapper counting it, its module)
+_OP_ARGS = {
+    "ehgr::action_stats": (lambda: (_cuda(1, 2, 3, 16), _cuda(3, 16),
+                                    _cuda(16, 1)), action_mega),
+    "ehgr::action_apply": (lambda: (_cuda(1, 2, 3, 16), _cuda(3, 16),
+                                    _cuda(1, 2, 3, 1), _cuda(1, 2, 16),
+                                    _cuda(16, 8)), action_mega),
+    "ehgr::action_prologue": (lambda: (_cuda(1, 2, 3, 16), _cuda(3, 16),
+                                       _cuda(16, 1)), action_fused),
+    "ehgr::tsm_shift": (lambda: (_cuda(1, 2, 3, 16), 8, False), tsm_shift),
+    "ehgr::int8_conv": (lambda: (
+        _cuda(2, 16, 5, 5), _cuda().abs(), torch.Tensor._make_subclass(
+            _OnCuda, torch.randint(-127, 128, (8, 16, 3, 3),
+                                   dtype=torch.int8)),
+        _cuda(8).abs(), 1, 1), int8_conv)}
+
+
+def test_registry_names_every_op_with_a_cuda_kernel():
+    """``registry.OPS`` (what a loaded artifact may call) is every custom
+    op of the port, each with a CUDA kernel, a CPU kernel and a fake
+    implementation registered."""
+    assert sorted(registry.OPS) == sorted(_OP_ARGS)
+    for name in registry.OPS:
+        for key in ("CUDA", "CPU", "Meta"):
+            assert torch._C._dispatch_has_kernel_for_dispatch_key(
+                name, key), (name, key)
+
+
+@pytest.mark.parametrize("name", sorted(_OP_ARGS))
+def test_op_on_cuda_tensor_with_failed_build_raises(monkeypatch, name):
+    """Each custom op itself (as an exported graph calls it, without the
+    wrapper) on CUDA operands and a kernel that does not build: the build's
+    error; the plain version does not run and nothing is counted."""
+    make, mod = _OP_ARGS[name]
+    wrapper = registry.OPS[name]
+    kernel = wrapper.__name__
+
+    def failed_build(lib, verbose=False):
+        raise RuntimeError(f"nvcc failed on {lib}")
+
+    def plain(*a):
+        raise AssertionError("the plain version ran for a CUDA tensor")
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "build", failed_build)
+    monkeypatch.setattr(mod, kernel + "_plain", plain)
+    op = getattr(torch.ops.ehgr, name.split("::")[1]).default
+    before = wrapper.launches
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        op(*make())
     assert wrapper.launches == before

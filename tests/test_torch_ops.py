@@ -93,10 +93,18 @@ class TestPreprocess:
         np.testing.assert_allclose(_np(got), want, rtol=2 ** -8, atol=1e-6)
 
     @pytest.mark.parametrize("square", [True, False])
-    def test_resize_is_refused(self, square):
-        x = torch.zeros((1, 2, 20, 24, 3), dtype=torch.uint8)
-        with pytest.raises(NotImplementedError, match="preprocess resize"):
-            preprocess_eval_batch(x, crop_size=16, square_resize=square)
+    def test_resize_is_refused(self, square, rng):
+        """Frames off the crop size were refused until the resize was
+        ported; now both protocols resize them as JAX does (the full
+        comparison: tests/test_torch_preprocess.py)."""
+        x = rng.integers(0, 256, (1, 2, 20, 24, 3), dtype=np.uint8)
+        want = np.asarray(j_preprocess_eval_batch(
+            jnp.asarray(x), scale_size=18, crop_size=16,
+            square_resize=square, dtype_name="float32"))
+        got = preprocess_eval_batch(torch.from_numpy(x), scale_size=18,
+                                    crop_size=16, square_resize=square,
+                                    dtype=torch.float32)
+        np.testing.assert_allclose(_np(got), want, rtol=0, atol=1e-4)
 
 
 class TestMetrics:
