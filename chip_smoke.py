@@ -151,6 +151,20 @@ Phases; any miss raises and the run exits nonzero:
    through their ops and through their CUDA implementations directly, in
    turns).
 
+16. the other backbone families (``backbones``), each at full width, T=8,
+   224^2, bf16, weights from the seed and BN statistics set from the first
+   request batch: their ACTION kernels held against the plain versions at
+   every new site shape (MobileNetV2's 10 sites, C = 24 ... 160, and
+   Res2Net-50's 16, F = 104 ... 832, for ``action_stats`` /
+   ``action_apply``; BN-Inception's 10 gates, C = 192 ... 1056, for
+   ``action_prologue`` and ``tsm_shift``; the learnable shift at the new
+   (S, C)); the request batches served in 'mega' (BN-Inception also in
+   'prologue') with each route's launches a forward against the routes
+   predicted (``BACKBONE_FORWARD``), clips/s, and the logits against the
+   plain model (fp32 and bf16); two 'vjp' train steps of MobileNetV2 and
+   Res2Net and one of BN-Inception (``BACKBONE_STEP``) and the fp32
+   gradient gate against float64 with every BN on batch statistics.
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
 without CUDA it exits nonzero before doing anything.
@@ -272,6 +286,48 @@ PROLOGUE_FORWARD = {"action_prologue": 16, "action_prologue_window": 16}
 # backward on the strip kernel
 SHIFT_STEP = {"learnable_shift_fwd": 16, "learnable_shift_bwd": 16,
               "learnable_shift_bwd_strip": 16}
+# the other backbones' temporal sites at 224^2: (S, C, F, sites a forward)
+# of MobileNetV2's 10 ACTION sites (the residual expand convs, F = 6C) and
+# Res2Net-50's 16 (every conv1, F = 4 x floor(planes x 26 / 64)), and
+# (S, C, sites) of BN-Inception's 10 gates (the block inputs)
+MBV2_SITES = [(3136, 24, 144, 1), (784, 32, 192, 2), (196, 64, 384, 3),
+              (196, 96, 576, 2), (49, 160, 960, 2)]
+RES2_SITES = [(3136, 64, 104, 1), (3136, 256, 104, 2), (3136, 256, 208, 1),
+              (784, 512, 208, 3), (784, 512, 416, 1), (196, 1024, 416, 5),
+              (196, 1024, 832, 1), (49, 2048, 832, 2)]
+BNI_SITES = [(784, 192, 1), (784, 256, 1), (784, 320, 1), (196, 576, 3),
+             (196, 608, 2), (49, 1056, 1), (49, 1024, 1)]
+BACKBONES = ("mobilenet_v2", "res2net50", "bn_inception")
+# the routes predicted for one bf16 forward in 'mega' (BN-Inception's gates
+# take action_prologue, also in 'prologue'): window / strip need C % 64 ==
+# 0 (and Cr % 4 == 0 for window), so MobileNetV2 has them at C = 64 only,
+# BN-Inception at every C but 608 and 1056; Res2Net at all 16
+BACKBONE_FORWARD = {
+    "mobilenet_v2": {"action_stats": 10, "action_stats_window": 3,
+                     "action_apply": 10, "action_apply_strip": 3},
+    "res2net50": MEGA_FORWARD,
+    "bn_inception": {"action_prologue": 10, "action_prologue_window": 7}}
+# ... and of one bf16 'vjp' train step (the shift backward on strip at
+# C % 64 == 0; BN-Inception's gates train through LearnableShift alone)
+BACKBONE_STEP = {
+    "mobilenet_v2": {**BACKBONE_FORWARD["mobilenet_v2"],
+                     "learnable_shift_fwd": 10, "learnable_shift_bwd": 10,
+                     "learnable_shift_bwd_strip": 3},
+    "res2net50": {**SHIFT_STEP, **MEGA_FORWARD},
+    "bn_inception": {"learnable_shift_fwd": 10, "learnable_shift_bwd": 10,
+                     "learnable_shift_bwd_strip": 7}}
+BACKBONE_STEPS = {"mobilenet_v2": 2, "res2net50": 2, "bn_inception": 1}
+# the parameters (of a model's gradient keys) whose exact gradient is zero
+# with every BN on batch statistics, held as BN_FED_BIASES are:
+# MobileNetV2's last BN bias of each block whose output reaches only plain
+# convs, each into a BN; BN-Inception's conv biases (each conv feeds its BN)
+BACKBONE_ZERO_GRAD = {
+    "mobilenet_v2": lambda keys: [
+        f"base_model.features.{i}.conv.{7 if i > 1 else 4}.bias"
+        for i in (1, 3, 6, 10, 13, 16, 17)],
+    "bn_inception": lambda keys: [
+        k for k in keys if k.endswith(".bias") and
+        k[:-len(".bias")] + "_bn.weight" in keys]}
 # the trainers' runs: synthetic videos to train on (8 steps of the recipe's
 # 8 clips an epoch) and epochs of the MTMM run (the resume adds one)
 LOOP_VIDEOS, LOOP_EPOCHS = 64, 2
@@ -484,12 +540,13 @@ def _window_template(mega, route, k, t, s, c):
     return dict(TG=g["TG"], N=g["N"])
 
 
-def check_kernels(torch, mega, n, gen):
-    """Each kernel against its plain version at every shape of
-    ``_check_shapes``, fp32 and bf16, ``action_stats`` also bitwise over
-    two calls; returns per-(shape, dtype) errors and raises on a miss."""
+def check_kernels(torch, mega, n, gen, shapes=None):
+    """Each kernel against its plain version at every shape of ``shapes``
+    (clips, T, S, C, F; default ``_check_shapes``), fp32 and bf16,
+    ``action_stats`` also bitwise over two calls; returns per-(shape,
+    dtype) errors and raises on a miss."""
     results, pool_acc = [], []
-    for k, t, s, c, f in _check_shapes(n):
+    for k, t, s, c, f in shapes or _check_shapes(n):
         for dname in ("float32", "bfloat16"):
             d = _inputs(torch, k, s, c, f, getattr(torch, dname), gen, t)
             ref = {k_: v.float() for k_, v in d.items()}   # same values, f32
@@ -537,7 +594,7 @@ def check_kernels(torch, mega, n, gen):
                                      f") differs between two calls at n={k} "
                                      f"T={t} S={s} C={c} {dname}")
             if dname == "bfloat16" and k == n and t == T and \
-                    (s, c, f) in [x[:3] for x in SITES]:
+                    (s, c, f) in [x[:3] for x in SITES] and not shapes:
                 pool_acc.append(pool_accumulation_delta(torch, d))
             del d, ref, got, want, first
     print("pool_accumulation " + json.dumps(pool_acc), flush=True)
@@ -574,14 +631,14 @@ def _shift_check_shapes(n):
              for s, c, _ in _shift_shapes(TPOOL_SITES)])
 
 
-def check_shift(torch, shk, n, gen):
+def check_shift(torch, shk, n, gen, shapes=None):
     """``learnable_shift_fwd`` / ``_bwd`` against autograd of the plain
-    shift (in f32 from the same values) at every shape of
-    ``_shift_check_shapes``, fp32 and bf16, the backward's route (read from
-    its launch counts) printed per shape and its dx and dw bitwise equal
-    over two calls; raises on a miss."""
+    shift (in f32 from the same values) at every shape of ``shapes``
+    (clips, T, S, C; default ``_shift_check_shapes``), fp32 and bf16, the
+    backward's route (read from its launch counts) printed per shape and
+    its dx and dw bitwise equal over two calls; raises on a miss."""
     results = []
-    for k, t, s, c in _shift_check_shapes(n):
+    for k, t, s, c in shapes or _shift_check_shapes(n):
         for dname in ("float32", "bfloat16"):
             x, w, g = _shift_inputs(torch, k, s, c, getattr(torch, dname),
                                     gen, t)
@@ -661,8 +718,9 @@ def set_bn_stats(torch, model, clips):
         h.remove()
 
 
-def build_models(torch, seed, frames):
-    """The served model ('mega') and its plain twin from the same seed.
+def build_models(torch, seed, frames, base_model="resnet50"):
+    """The served model ('mega') and its plain twin from the same seed
+    (``base_model``: the backbone, ResNet-50 for the ACTION scorer).
 
     With BN's init statistics (mean 0, var 1) a random ResNet-50 + ACTION
     at 224^2 grows its activations to ~1e5 (logits ~7e3), where the
@@ -673,8 +731,8 @@ def build_models(torch, seed, frames):
     from ehgr_tpu_torch.models.tsn import variant
 
     models = [variant("tsn", num_class=CLASSES, num_segments=T,
-                      temporal="action", action_fused=mode,
-                      dtype=torch.float32, device="cuda",
+                      base_model=base_model, temporal="action",
+                      action_fused=mode, dtype=torch.float32, device="cuda",
                       generator=torch.Generator().manual_seed(seed))
               for mode in ("mega", None)]
     mega_model, plain = models
@@ -900,19 +958,20 @@ def make_train_batches(seed, count):
 
 
 def _train_model(torch, seed, mode, dtype, dropout, arch="tsn_mtmm",
-                 temporal="action"):
+                 temporal="action", base_model="resnet50"):
     from ehgr_tpu_torch.models.tsn import variant
 
     return variant(arch, num_class=CLASSES, num_segments=T,
-                   temporal=temporal, action_fused=mode, partial_bn=False,
+                   base_model=base_model, temporal=temporal,
+                   action_fused=mode, partial_bn=False,
                    dropout=dropout, dtype=dtype, device="cuda",
                    generator=torch.Generator().manual_seed(seed))
 
 
-def run_steps(torch, name, model, stage, seed, want):
+def run_steps(torch, name, model, stage, seed, want, steps=TRAIN_STEPS):
     """``make_train_step(stage=...)`` on ``model`` with the recipe's
     optimizer settings: one warm-up step (its peak memory above what the
-    fresh state holds, as ``remat_step`` reads it), then TRAIN_STEPS steps
+    fresh state holds, as ``remat_step`` reads it), then ``steps`` steps
     with the launch counters zeroed just before and read after each step;
     each step must launch exactly ``want`` (kernel -> count, the others
     0).  Returns the result and the warm (step, state, batch,
@@ -932,7 +991,7 @@ def run_steps(torch, name, model, stage, seed, want):
                            loss_cfg=LossConfig(depth_size=DEPTH_SIZE),
                            ema_decay=0.9999, mean=IMAGENET_MEAN,
                            std=IMAGENET_STD)
-    batches = make_train_batches(seed, TRAIN_STEPS + 1)
+    batches = make_train_batches(seed, steps + 1)
     gen = torch.Generator(device="cuda").manual_seed(seed)
     p0 = {k: v.detach().clone() for k, v in state.params.items()}
     e0 = {k: v.clone() for k, v in state.ema_params.items()}
@@ -971,7 +1030,7 @@ def run_steps(torch, name, model, stage, seed, want):
         raise AssertionError(f"{name}: params moved {moved}, EMA "
                              f"{ema_moved} of {len(p0)}")
     mean_ms = sum(ms) / len(ms)
-    out = dict(stage=stage, steps=TRAIN_STEPS, clips=TRAIN_CLIPS,
+    out = dict(stage=stage, steps=steps, clips=TRAIN_CLIPS,
                launches=launches, launches_per_step=per_step[0],
                ms_per_step=ms, mean_ms_per_step=mean_ms,
                clips_per_s=TRAIN_CLIPS / mean_ms * 1e3,
@@ -991,14 +1050,16 @@ def train(torch, seed):
                      {**SHIFT_STEP, **MEGA_FORWARD})
 
 
-def _frozen_bn_state(torch, seed, batch, arch="tsn_mtmm"):
+def _frozen_bn_state(torch, seed, batch, arch="tsn_mtmm",
+                     base_model="resnet50"):
     """Weights of the parity models with every BN's running statistics set
     from its input on ``batch`` (plain path, as for the scorer)."""
     from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
                                                       IMAGENET_STD,
                                                       normalize_clip)
 
-    model = _train_model(torch, seed, None, torch.float32, 0.0, arch)
+    model = _train_model(torch, seed, None, torch.float32, 0.0, arch,
+                         base_model=base_model)
     set_bn_stats(torch, model,
                  normalize_clip(batch["rgb"], IMAGENET_MEAN, IMAGENET_STD))
     return model.state_dict()
@@ -1048,7 +1109,7 @@ def check_sites(torch, gen):
 
 
 def _parity_grads(torch, seed, mode, dtype, batch, state, arch="tsn_mtmm",
-                  stage="mtmm"):
+                  stage="mtmm", base_model="resnet50"):
     """Loss and gradients of one fp32 (or float64) forward/backward of the
     ``stage`` loss; ``state``: BN statistics to load, every BN then
     frozen."""
@@ -1058,7 +1119,8 @@ def _parity_grads(torch, seed, mode, dtype, batch, state, arch="tsn_mtmm",
                                                       IMAGENET_STD)
     from ehgr_tpu_torch.train.steps import make_loss_fn
 
-    model = _train_model(torch, seed, mode, torch.float32, 0.0, arch)
+    model = _train_model(torch, seed, mode, torch.float32, 0.0, arch,
+                         base_model=base_model)
     if state is not None:
         model.load_state_dict(state)
         for m in model.modules():
@@ -1086,7 +1148,8 @@ def _grad_stats(errs):
 
 
 def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
-                 settings=("bn_batch", "bn_running"), leaves=False):
+                 settings=("bn_batch", "bn_running"), leaves=False,
+                 base_model="resnet50", zero_grad=lambda keys: ()):
     """One step's loss and gradients of the full-width model: the fp32
     'vjp' kernel model and the fp32 plain model, each against a float64 run
     of the plain model from the same weights and batch (dropout 0).  The
@@ -1099,21 +1162,22 @@ def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
     phase runs; ``bn_running``, every BN on running statistics set from the
     batch.  ``leaves``: the result also holds every leaf's error.  A
     parameter outside the loss (the joint model's local decoder) has no
-    gradient and no error; in ``bn_batch`` each bias of BN_FED_BIASES
-    (exact gradient zero) is held instead within ZERO_GRAD_REL of its
-    weight's largest gradient, in both fp32 runs."""
+    gradient and no error; in ``bn_batch`` each bias of BN_FED_BIASES and
+    of ``zero_grad(gradient keys)`` (exact gradient zero) is held instead
+    within ZERO_GRAD_REL of its weight's largest gradient, in both fp32
+    runs.  ``base_model``: the backbone of the ``arch`` model."""
     batch = {k: torch.as_tensor(v).cuda()
              for k, v in make_train_batches(seed, 1)[0].items()}
     out = {}
     for setting in settings:
-        state = _frozen_bn_state(torch, seed, batch, arch) \
+        state = _frozen_bn_state(torch, seed, batch, arch, base_model) \
             if setting == "bn_running" else None
         loss64, ref = _parity_grads(torch, seed, None, torch.float64, batch,
-                                    state, arch, stage)
+                                    state, arch, stage, base_model)
         runs = {name: _parity_grads(torch, seed, mode, torch.float32, batch,
-                                    state, arch, stage)
+                                    state, arch, stage, base_model)
                 for name, mode in (("vjp", "vjp"), ("plain", None))}
-        zero = [k for k in BN_FED_BIASES
+        zero = [k for k in BN_FED_BIASES + tuple(zero_grad(set(ref)))
                 if setting == "bn_batch" and k in ref]
         zero_rel = {name: {k: g[k].abs().max().item() / g[
             k[:-len("bias")] + "weight"].abs().max().item() for k in zero}
@@ -1136,9 +1200,12 @@ def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
             plain_vs_float64=stat["plain"], tol=tol,
             vjp_vs_plain=_grad_stats(direct))
         if zero:
-            r.update(zero_grad_rel=zero_rel, zero_grad_tol=ZERO_GRAD_REL)
-        print(f"train_parity {stage} {setting} " + json.dumps(r),
-              flush=True)
+            r.update(zero_grad_tol=ZERO_GRAD_REL, zero_grad_rel={
+                name: dict(n=len(z), worst=max(z.values()),
+                           worst_key=max(z, key=z.get))
+                for name, z in zero_rel.items()})
+        print(f"train_parity {base_model} {stage} {setting} " +
+              json.dumps(r), flush=True)
         if leaves:
             r["leaves"] = errs
         if any(v > ZERO_GRAD_REL for z in zero_rel.values()
@@ -1162,13 +1229,14 @@ def train_parity(torch, seed, arch="tsn_mtmm", stage="mtmm",
 # the third slice: the TSM shift, the ACTION prologue, TSM and Stage 2
 # ---------------------------------------------------------------------------
 
-def check_tsm(torch, tk, gen):
-    """``tsm_shift`` forward and reverse against the plain shift at the
-    site shapes at TRAIN_CLIPS clips and the ragged shapes (also at
-    ``fold_div`` 4 there, where fold splits a 16-byte vector in fp32 too),
-    fp32 and bf16: a copy, so bitwise equal.  Raises on a miss."""
+def check_tsm(torch, tk, gen, shapes=None):
+    """``tsm_shift`` forward and reverse against the plain shift at
+    ``shapes`` (S, C, fold_div; default the site shapes and the ragged
+    shapes, also at ``fold_div`` 4 there, where fold splits a 16-byte vector
+    in fp32 too) at TRAIN_CLIPS clips, fp32 and bf16: a copy, so bitwise
+    equal.  Raises on a miss."""
     results = []
-    shapes = [(s, c, FOLD_DIV) for s, c, _ in _shift_shapes()] + \
+    shapes = shapes or [(s, c, FOLD_DIV) for s, c, _ in _shift_shapes()] + \
         [(s, c, d) for s, c in TSM_RAGGED for d in (FOLD_DIV, 4)]
     for s, c, fold_div in shapes:
         for dname in ("float32", "bfloat16"):
@@ -1197,13 +1265,13 @@ def check_tsm(torch, tk, gen):
     return results
 
 
-def check_prologue(torch, fused, mega, n, gen):
+def check_prologue(torch, fused, mega, n, gen, shapes=None):
     """``action_prologue`` against its plain version (in f32 from the same
-    values) and bitwise over two calls, at every shape of
-    ``_check_shapes`` (F unused), all four outputs, fp32 and bf16; raises
-    on a miss."""
+    values) and bitwise over two calls, at every shape of ``shapes``
+    (default ``_check_shapes``; F unused), all four outputs, fp32 and bf16;
+    raises on a miss."""
     results = []
-    for k, t, s, c, f in _check_shapes(n):
+    for k, t, s, c, f in shapes or _check_shapes(n):
         for dname in ("float32", "bfloat16"):
             d = _inputs(torch, k, s, c, f, getattr(torch, dname), gen, t)
             call = lambda: fused.action_prologue(d["x4"], d["w"], d["wp3"])
@@ -2181,6 +2249,81 @@ def loop_test_mtmm_sd(torch, tmp, joint):
     return run_protocol(torch, "loop_test_mtmm_sd", cfg, "tsn_sd", 4,
                         PROLOGUE_FORWARD, HEADS_BF16_SLACK,
                         ("local_decoder.", "global_decoder."))
+
+
+# ---------------------------------------------------------------------------
+# the fourteenth slice: the other backbone families
+# ---------------------------------------------------------------------------
+
+def backbone_checks(torch, mega, fused, shk, tk, n, gen):
+    """The kernels against their plain versions at the other backbones'
+    site shapes: ``action_stats`` / ``action_apply`` at MobileNetV2's and
+    Res2Net's sites at the served batch's ``n`` clips and at TRAIN_CLIPS
+    (the train steps'), ``action_prologue`` at BN-Inception's gates at
+    ``n``, the learnable shift at the (S, C) of MobileNetV2's sites and
+    BN-Inception's gates at TRAIN_CLIPS (Res2Net's are ResNet-50's) and
+    ``tsm_shift`` at BN-Inception's gates; fp32 and bf16."""
+    sites = MBV2_SITES + RES2_SITES
+    checks = check_kernels(torch, mega, n, gen, shapes=[
+        (k, T, s, c, f) for k in (n, TRAIN_CLIPS) for s, c, f, _ in sites])[0]
+    checks += check_prologue(torch, fused, mega, n, gen, shapes=[
+        (n, T, s, c, 0) for s, c, _ in BNI_SITES])
+    checks += check_shift(torch, shk, n, gen, shapes=[
+        (TRAIN_CLIPS, T, s, c) for s, c in dict.fromkeys(
+            [x[:2] for x in MBV2_SITES + BNI_SITES])])
+    checks += check_tsm(torch, tk, gen, shapes=[(s, c, FOLD_DIV)
+                                                for s, c, _ in BNI_SITES])
+    return checks
+
+
+def backbones(torch, seed, batches, card):
+    """Each other backbone family with ACTION at full width (224^2, T=8,
+    bf16, weights from ``seed``, BN statistics set from the first batch):
+    the request batches served in 'mega' (BN-Inception's gates also in
+    'prologue') as the main path, each forward's launches per route against
+    BACKBONE_FORWARD, clips/s printed beside ``card`` (name, power limit),
+    the logits against the plain model (``compare_logits``); then
+    BACKBONE_STEPS 'vjp' train steps (stage ``baseline``, BACKBONE_STEP
+    launches each) and the fp32 gradient gate against float64 with every
+    BN on batch statistics.  Returns the results and the main paths'
+    results by name."""
+    from ehgr_tpu_torch.ops.action import ActionConv
+
+    out, paths = {}, {}
+    for family in BACKBONES:
+        r = out[family] = {}
+        model, plain = build_models(torch, seed, batches[0][0], family)
+        for mode in ("mega", "prologue") if family == "bn_inception" \
+                else ("mega",):
+            for m in model.modules():
+                if isinstance(m, ActionConv):
+                    m.mode = mode
+            name = f"{family}_serve_{mode}"
+            served = paths[name] = serve(torch, model, batches,
+                                         BACKBONE_FORWARD[family], name)
+            per = {k: v // len(batches) for k, v in
+                   served["launches"].items() if v}
+            print(f"backbone_routes {family} {mode} launched a forward "
+                  f"{json.dumps(per)} predicted "
+                  f"{json.dumps(BACKBONE_FORWARD[family])}", flush=True)
+            print(f"backbone_speed {family} {mode} clips/s "
+                  f"{served['clips_per_s']:.1f} on {card}", flush=True)
+            r[f"serve_{mode}"] = served
+            r[f"logits_{mode}"] = compare_logits(torch, model, plain,
+                                                 batches[0][0])
+        del model, plain
+        name = f"{family}_train"
+        r["train"], _ = run_steps(
+            torch, name, _train_model(torch, seed, "vjp", torch.bfloat16,
+                                      0.5, "tsn", base_model=family),
+            "baseline", seed, BACKBONE_STEP[family],
+            steps=BACKBONE_STEPS[family])
+        paths[name] = r["train"]
+        r["train_parity"] = train_parity(
+            torch, seed, "tsn", "baseline", ("bn_batch",),
+            base_model=family,
+            zero_grad=BACKBONE_ZERO_GRAD.get(family, lambda keys: ()))
+    return out, paths
 
 
 # ---------------------------------------------------------------------------
@@ -3826,6 +3969,16 @@ def main(argv=None) -> int:
     l_test_joint = phase("loop_test_mtmm_sd", loop_test_mtmm_sd, torch, tmp,
                          joint_res)
     tmpdir.cleanup()
+
+    # the other backbone families: their site shapes, then serving and
+    # training each at full width
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    checks += phase("backbone_checks", backbone_checks, torch, mega, fused,
+                    shk, tk, n, gen)
+    bb, bb_paths = phase("backbones", backbones, torch, args.seed, batches,
+                         smi)
     coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
@@ -3834,9 +3987,6 @@ def main(argv=None) -> int:
                     time_int8(torch, i8, gen))
     print("phase_seconds " + json.dumps(phases), flush=True)
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
     paths = {"serve": served, "train": trained, "tsm_serve": tsm_served,
              "tsm_train": tsm_trained, "sd_train": sd_trained,
              "sd_serve_prologue": deploy["serve_prologue"],
@@ -3855,7 +4005,8 @@ def main(argv=None) -> int:
              **{f"export_{k}": v for k, v in exported.items()
                 if isinstance(v, dict)},
              **{f"cascade_{k}": v for k, v in casc.items()},
-             **{f"stream_{k}": v for k, v in stream.items()}}
+             **{f"stream_{k}": v for k, v in stream.items()},
+             **bb_paths}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -3876,7 +4027,7 @@ def main(argv=None) -> int:
                       "int8_serve": i8_served, "int8_test": i8_test,
                       "serve_dispatch": dispatch, "preprocess": prep,
                       "export_serve": exported, "cascade": casc,
-                      "stream": stream,
+                      "stream": stream, "backbones": bb,
                       "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)

@@ -1,2 +1,3 @@
-"""Models: the ResNet backbone with ACTION/TSM (L2) and the TSN task model
-(L4), plus the JAX-weights converter."""
+"""Models: the backbones with ACTION/TSM (ResNet, Res2Net, MobileNetV2,
+BN-Inception; L2), the TSN task model (L4), the image-level BYOT ResNet,
+the modality helpers and the JAX-weights converter."""

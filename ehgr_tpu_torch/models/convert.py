@@ -29,10 +29,21 @@ own name, since the MTMM and the joint-stage decoder share the prefix
 ``global_decoder``: ``conv0..4/bn0..3`` (the MTMM decoder) by the table
 above, ``ct{i}`` -> ``2i`` and ``ctbn{i}`` -> ``2i+1`` (the transposed
 decoders); ``text_encoder/{conv,bn}`` -> ``text_encoder.{0,1}``.
+
+The other backbones: MobileNetV2 ``features_{i}`` -> ``features.{i}``,
+inside it ``conv_{j}`` -> ``conv.{j}`` and ``c0/c1`` -> ``0/1``;
+BN-Inception's Caffe-flat keys, ``conv1/{conv,bn}`` ->
+``conv1_7x7_s2[_bn]`` (also ``conv2_reduce``, ``conv2``) and
+``inception_3a/b1x1/{conv,bn}`` -> ``inception_3a_1x1[_bn]`` (the branches
+of ``_BNI_BRANCH``); Res2Net ``convs_{k}`` / ``bns_{k}`` ->
+``convs.{k}`` / ``bns.{k}``.  A ``SepConv`` outside the SD exits (the
+BYOT model's ``attention{i}/sep`` and ``scala{i}_sep{k}``) becomes
+``<name>.op.{index}`` by the same table as in a scala exit.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -68,6 +79,14 @@ _LR_STEP_PAD = 2 ** 30
 _DECODERS = ("global_decoder", "local_decoder", "local_skel_decoder",
              "global_skel_decoder")
 _TEXT_SEQ = {"conv": "0", "bn": "1"}
+# BN-Inception: a block's branches and the stem's layers -> their Caffe names
+_BNI_BRANCH = {"b1x1": "1x1", "b3x3_reduce": "3x3_reduce", "b3x3": "3x3",
+               "bd3x3_reduce": "double_3x3_reduce",
+               "bd3x3_1": "double_3x3_1", "bd3x3_2": "double_3x3_2",
+               "bpool_proj": "pool_proj"}
+_BNI_STEM = {"conv1": "conv1_7x7_s2", "conv2_reduce": "conv2_3x3_reduce",
+             "conv2": "conv2_3x3"}
+_BYOT_SEP = re.compile(r"scala\d+_sep\d+")
 
 
 def _decoder_index(p: str) -> str:
@@ -79,12 +98,40 @@ def _decoder_index(p: str) -> str:
     return _DECODER_SEQ[p]
 
 
+def _caffe_flat(parts):
+    """BN-Inception's layers as one part each, its Caffe-flat names:
+    ``inception_3a/b1x1/conv`` -> ``inception_3a_1x1``, ``conv1/bn`` ->
+    ``conv1_7x7_s2_bn``; other parts pass."""
+    out = []
+    for p in parts:
+        suffix = "_bn" if p == "bn" else ""
+        if p in ("conv", "bn") and out and out[-1] in _BNI_STEM:
+            out[-1] = _BNI_STEM[out[-1]] + suffix
+        elif p in ("conv", "bn") and len(out) > 1 and \
+                out[-1] in _BNI_BRANCH and out[-2].startswith("inception_"):
+            branch = out.pop()
+            out[-1] = f"{out[-1]}_{_BNI_BRANCH[branch]}{suffix}"
+        else:
+            out.append(p)
+    return out
+
+
 def torch_key(path: Tuple[str, ...]) -> str:
     """A flax variable path (collection stripped) -> its torch key."""
     *parts, leaf = path
     out = []
-    for p in parts:
-        if p.startswith("layer") and "_" in p:
+    for p in _caffe_flat(parts):
+        if p.startswith("features_"):
+            out += ["features", p[len("features_"):]]
+        elif p.startswith("conv_") and "features" in out:
+            out += ["conv", p[len("conv_"):]]
+        elif p in ("c0", "c1") and "features" in out:
+            out.append(p[1:])
+        elif p.split("_")[0] in ("convs", "bns") and "_" in p:
+            out += p.split("_")
+        elif p == "sep" or _BYOT_SEP.fullmatch(p):
+            out += [p, "op"]
+        elif p.startswith("layer") and "_" in p:
             stage, block = p[5:].split("_")
             out += [f"layer{stage}", block]
         elif p == "downsample_conv":

@@ -1,6 +1,7 @@
 """Model factory (counterpart of ``ehgr_tpu/models/factory.py``): a
 ``ModelConfig`` -> the model, for the families the port has (the TSN
-surfaces over the ResNet family)."""
+surfaces over ResNet-50/101, Res2Net-50, MobileNetV2 and BN-Inception,
+``m.base_model``)."""
 
 from __future__ import annotations
 

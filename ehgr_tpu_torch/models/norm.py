@@ -23,6 +23,11 @@ from torch import nn
 
 
 class BatchNorm(nn.BatchNorm2d):
+    # whether the optimizer's policy walk labels this layer a BN: the JAX
+    # walk decides by "bn" in the flax module name, which MobileNetV2's
+    # BNs (``c1``, ``conv_{j}``) lack (train/optim.py)
+    policy_bn = True
+
     def __init__(self, num_features: int, frozen: bool = False,
                  device=None):
         super().__init__(num_features, eps=1e-5, momentum=0.1, device=device)

@@ -22,13 +22,16 @@ import torch
 from torch import nn
 
 from ehgr_tpu_torch.device import DeviceLike, resolve_device
-from ehgr_tpu_torch.models.backbones import get_backbone
+from ehgr_tpu_torch.models.backbones import get_backbone, supports_taps
 from ehgr_tpu_torch.models.decoders import (GlobalDepthDecoder, Scala,
                                            TextEncoder, TransposedDecoder)
 from ehgr_tpu_torch.models.layers import Linear, init_params
 from ehgr_tpu_torch.ops.consensus import consensus
 
-_FEATURES = {"resnet50": 2048, "resnet101": 2048}
+# width of the pooled feature of each backbone (its names and aliases)
+_FEATURES = {"resnet50": 2048, "resnet101": 2048, "res2net50": 2048,
+             "res2net50_26w_4s": 2048, "mobilenet_v2": 1280,
+             "mobilenetv2": 1280, "bn_inception": 1024, "BNInception": 1024}
 # input width and SepConv widths of each SD exit (taps layer1..3 of ResNet)
 _SCALA = {1: (256, (512, 1024, 2048)), 2: (512, (1024, 2048)),
           3: (1024, (2048,))}
@@ -61,8 +64,12 @@ class TSN(nn.Module):
     ``ehgr_tpu_torch.device``); ``dtype`` is the compute dtype.  Weights are
     drawn from ``generator`` (default: a CPU generator seeded 0): lecun
     normal for convs, ``N(0, 0.001)`` for the heads as in the reference.
-    ``partial_bn`` keeps every backbone BN but the stem's on its running
-    statistics in training; ``dropout`` acts on the pooled feature in
+    ``base_model``: the ResNet family (``resnet50``, ``resnet101``,
+    ``res2net50``) serves every surface; ``mobilenet_v2`` and
+    ``bn_inception`` only ``tsn`` (the others raise, as in JAX).
+    ``partial_bn`` keeps every ResNet BN but the stem's on its running
+    statistics in training (the other families keep every BN on batch
+    statistics, as JAX builds them); ``dropout`` acts on the pooled feature in
     training, drawn from the ``generator`` passed to ``forward``.
     ``remat`` recomputes each bottleneck in the backward pass and
     ``quantize`` makes its block convs int8 sites at eval (see
@@ -91,6 +98,12 @@ class TSN(nn.Module):
         self.before_softmax = before_softmax
         self.temporal_pool = temporal_pool
         self.dtype = dtype
+        if (with_sd or with_depth or truncate_at) and \
+                not supports_taps(base_model):
+            raise ValueError(
+                f"{base_model} supports only the plain TSN surface "
+                "(MTMM/SD need resnet-family layer taps, as in the "
+                "reference)")
         self.base_model = get_backbone(
             base_model, temporal=temporal, n_segment=num_segments,
             shift_div=shift_div, action_fused=action_fused,

@@ -24,6 +24,13 @@ package, whose ResNet leaves it off.  Submodule names are the reference's
 torch keys (``action_shift``, ``action_p1_conv1``, ..., ``net``), which
 ``export_state_dict`` emits, so converted JAX weights load strictly.
 Weights are cast to the input's dtype at use, as flax does.
+
+The gate-only ``ActionGate`` (``features=0``, BN-Inception's block
+entries) returns the gated sum itself: at eval in ``'mega'`` and
+``'prologue'`` it takes ``x_shift`` and its statistics from the
+``action_prologue`` kernel, and in training in ``'vjp'`` its shift runs on
+the shift kernels (``LearnableShift``) with autograd for the rest; the
+values are the plain formulation's.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ehgr_tpu_torch.ops.kernels.action_fused import action_prologue
 from ehgr_tpu_torch.ops.kernels.action_mega import (action_apply,
                                                     action_stats,
                                                     ste_stencil)
+from ehgr_tpu_torch.ops.kernels.shift import LearnableShift
 from ehgr_tpu_torch.ops.kernels.tsm_shift import TsmShift
 from ehgr_tpu_torch.ops.quantize import (MIN_SCALE, WeightCodes,
                                          int8_forward, record_amax)
@@ -133,10 +141,14 @@ class ActionConv(nn.Module):
 
         if use_mega:
             mc, pooled, x3 = action_stats(x4, shift_w, w_p3)
-        elif self.mode == "prologue" and not self.training:
+        elif not self.training and self.mode in ("prologue", "mega"):
+            # 'mega' lands here gate-only: no wrapped conv for its sweep 2
             xs, mc, pooled, x3 = action_prologue(x4, shift_w, w_p3)
         else:
-            xs = learnable_shift(x4, shift_w)                  # [N,T,S,C]
+            # training in 'vjp' lands here gate-only (ActionGate)
+            shift = LearnableShift.apply if self.training and \
+                self.mode == "vjp" else learnable_shift
+            xs = shift(x4, shift_w)                             # [N,T,S,C]
             pooled = xs.mean(2)                                 # [N,T,C]
             x3 = xs @ w_p3                                      # [N,T,S,Cr]
             mc = xs.mean(-1)
@@ -208,11 +220,23 @@ class ActionConv(nn.Module):
 
 
 def ActionGate(in_channels: int, n_segment: int, shift_div: int = 8,
-               device=None) -> ActionConv:
+               fused=None, device=None) -> ActionConv:
     """ACTION gating without a wrapped conv (channel-preserving gated
-    sum)."""
+    sum), its ME BN on batch statistics in training."""
     return ActionConv(in_channels, 0, n_segment, shift_div=shift_div,
-                      bn_frozen=False, device=device)
+                      fused=fused, bn_frozen=False, device=device)
+
+
+def tsm_shift_nchw(x: torch.Tensor, n_segment: int,
+                   shift_div: int) -> torch.Tensor:
+    """The TSM shift of ``[N*T, C, H, W]`` on the ``tsm_shift`` kernel
+    (``TsmShift``, forward and backward) over its ``[N, T, S, C]`` view,
+    returned as a ``channels_last`` view."""
+    nt, c, h, w = x.shape
+    # the kernel needs the [N,T,S,C] view dense (as in ActionConv)
+    x4 = x.contiguous(memory_format=torch.channels_last) \
+        .permute(0, 2, 3, 1).reshape(nt // n_segment, n_segment, h * w, c)
+    return _nchw(TsmShift.apply(x4, shift_div), nt, h, w)
 
 
 class TSMConv(nn.Module):
@@ -229,9 +253,4 @@ class TSMConv(nn.Module):
                           device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        nt, c, h, w = x.shape
-        # the kernel needs the [N,T,S,C] view dense (as in ActionConv)
-        x4 = x.contiguous(memory_format=torch.channels_last) \
-            .permute(0, 2, 3, 1).reshape(nt // self.n_segment,
-                                         self.n_segment, h * w, c)
-        return self.net(_nchw(TsmShift.apply(x4, self.shift_div), nt, h, w))
+        return self.net(tsm_shift_nchw(x, self.n_segment, self.shift_div))

@@ -4,7 +4,10 @@
 * Groups (``label_params``): first conv x1; conv biases x2 without decay; BN
   without decay; the ACTION ("custom") weights x1; the classifier head x5
   weight / x10 bias with ``fc_lr5``; under partial BN every BN but the
-  stem's, the ME ``p3_bn1`` included, gets lr 0 ("frozen").
+  stem's, the ME ``p3_bn1`` included, gets lr 0 ("frozen").  A BN is one
+  whose JAX module name holds "bn", as the JAX walk decides: MobileNetV2's
+  BNs (``BatchNorm.policy_bn`` False) are not, so their scale and bias go
+  with the conv biases (x2, no decay, never frozen), as in JAX.
 * Update, torch SGD with momentum: ``buf = mu*buf + g + wd*decay_mult*p``,
   ``p -= lr_group*factor*buf`` with ``lr_group = f32(base_lr*mult)``.
 * Step decay: ``factor = gamma ** #(lr_steps passed)``, taken at epoch - 1
@@ -56,11 +59,12 @@ def label_params(model: nn.Module, fc_lr5: bool = True,
     for name, _ in model.named_parameters():
         mods, leaf = name.split(".")[:-1], name.split(".")[-1]
         owner = model.get_submodule(".".join(mods))
+        is_bn = isinstance(owner, nn.modules.batchnorm._BatchNorm)
         if mods and mods[-1] in ("action_shift",) + _ACTION_CHILDREN:
             labels[name] = "custom_weight"
         elif mods and mods[-1] == "action_p3_bn1":
             labels[name] = "frozen" if partial_bn else "custom_bn"
-        elif isinstance(owner, nn.modules.batchnorm._BatchNorm):
+        elif is_bn and getattr(owner, "policy_bn", True):
             is_stem_bn = mods == ["base_model", "bn1"]
             labels[name] = "frozen" if partial_bn and not is_stem_bn \
                 else "bn"
@@ -74,9 +78,9 @@ def label_params(model: nn.Module, fc_lr5: bool = True,
             else:
                 labels[name] = "normal_weight" if leaf == "weight" \
                     else "normal_bias"
-        elif leaf == "weight":
+        elif leaf == "weight" and not is_bn:
             labels[name] = "normal_weight"
-        else:
+        else:                       # a bias, or a BN the walk does not see
             labels[name] = "normal_bias"
     return labels
 

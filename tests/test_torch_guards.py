@@ -68,7 +68,12 @@ def test_every_module_is_found():
                  "ehgr_tpu_torch.eval.streaming",
                  "ehgr_tpu_torch.cli.export_serving",
                  "ehgr_tpu_torch.cli.test_cascade",
-                 "ehgr_tpu_torch.cli.stream_demo"):
+                 "ehgr_tpu_torch.cli.stream_demo",
+                 "ehgr_tpu_torch.models.mobilenet_v2",
+                 "ehgr_tpu_torch.models.bn_inception",
+                 "ehgr_tpu_torch.models.res2net",
+                 "ehgr_tpu_torch.models.modality",
+                 "ehgr_tpu_torch.models.byot_resnet"):
         assert want in mods
 
 
