@@ -165,6 +165,23 @@ Phases; any miss raises and the run exits nonzero:
    Res2Net and one of BN-Inception (``BACKBONE_STEP``) and the fp32
    gradient gate against float64 with every BN on batch statistics.
 
+17. the recipe's tools (``slice_checks`` first: the ACTION kernels and
+   the learnable shift at the shapes below): ``cli.dress_rehearsal`` at
+   its protocol defaults (224^2, T=8, 83 classes, 'vjp', 32 clips a step:
+   MTMM, the SD transfer, SD, the 4-head test; 16 launches of each of the
+   four kernels a step; each stage's wall, ms a step, first-step peak
+   memory); ``cli.test_sd_actionnet`` on its SD ``best`` in 'prologue'
+   (16 ``action_prologue`` a forward, the SD-head gate) and 'vjp' (equal
+   to ``cli.test_sd``'s result); ``gradcam`` on the full-width ``tsn``
+   and ``tsn_sd`` in fp32 at every exit, 'mega' against plain (the taps
+   within TOL, each CAM's distance from a float64 plain run within WORST_X
+   times the plain fp32 model's plus CAM_TOL, the same class), one call
+   timed (``utils.profiling.time_fn``)
+   and one traced (``utils.profiling.trace``, naming the ACTION kernels);
+   ``case_study_scores`` on four synthetic test videos, 'mega' against
+   plain; ``cli.reproduce --row ego_mtmm_sd --smoke`` (T=4, 32^2, S down
+   to 1x1).
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
 without CUDA it exits nonzero before doing anything.
@@ -430,6 +447,37 @@ STREAM_FRAMES = 256
 # passes over the request batches in each turn of the dispatch comparison
 # and in the timing of a loaded artifact and its live scorer
 DISPATCH_REPS = 5
+# the dress rehearsal at the protocol's geometry (cli.dress_rehearsal's
+# defaults: 224^2, T=8, 83 classes, 'vjp'): 32 clips a step; 64 videos
+# give 2 steps an epoch under its --steps 3, one epoch a stage
+REHEARSAL_ARGV = ["--batch", "32", "--steps", "3", "--videos", "64"]
+REHEARSAL_CLIPS, REHEARSAL_STEPS = 32, 2
+# GradCAM: two videos (the first clip of each of the first request batch)
+# and the exits of each surface.  The CAM of an exit is ill-conditioned on
+# a random full-width model: the head's gradient passes the scala's ReLUs,
+# whose inputs sit at zero after BN, so rounding flips kinks and moves the
+# channel weights by percents; the plain fp32 model's mid-exit CAMs read
+# 1.5-1.7e-2 from a float64 run of itself on the CPU and 3.0-6.0e-3 on the
+# H100 (PERF.md), where 1e-3 holds only at the final exit.  So each
+# fp32 CAM (TF32 off) is held to the float64 plain model's: the 'mega'
+# model's error within WORST_X times the plain fp32 model's plus CAM_TOL
+CAM_VIDEOS = 2
+CAM_EXITS = {"tsn": ("final",), "tsn_sd": ("final", "mid1", "mid2", "mid3")}
+CAM_TOL = 1e-3
+# words of the ACTION kernels' CUDA names (the window, strip and FMA sweep
+# kernels) that a traced GradCAM call must list
+ACTION_KERNEL_WORDS = ("stats_window_kernel", "apply_strip_kernel",
+                       "sweep_kernel")
+# the case study: synthetic test videos of the CLI's source, RUN_CLIPS
+# clips each, scored one video a call
+CASE_VIDEOS = 4
+# cli.reproduce --smoke (the chain's flags): T=4, 32^2, 4 clips a train
+# step, 3 steps a train stage; ResNet-50's 16 ACTION sites there: (S, C,
+# F, sites a forward) with S = 8^2, 4^2, 2^2 and 1^2
+REPRO_T, REPRO_CLIPS, REPRO_STEPS = 4, 4, 3
+REPRO_SITES = [(64, 64, 64, 1), (64, 256, 64, 2), (64, 256, 128, 1),
+               (16, 512, 128, 3), (16, 512, 256, 1), (4, 1024, 256, 5),
+               (4, 1024, 512, 1), (1, 2048, 512, 2)]
 
 
 def _inputs(torch, n, s, c, f, dtype, gen, t=T):
@@ -718,9 +766,10 @@ def set_bn_stats(torch, model, clips):
         h.remove()
 
 
-def build_models(torch, seed, frames, base_model="resnet50"):
+def build_models(torch, seed, frames, base_model="resnet50", arch="tsn"):
     """The served model ('mega') and its plain twin from the same seed
-    (``base_model``: the backbone, ResNet-50 for the ACTION scorer).
+    (``base_model``: the backbone, ResNet-50 for the ACTION scorer;
+    ``arch``: the surface, ``tsn`` for the scorer).
 
     With BN's init statistics (mean 0, var 1) a random ResNet-50 + ACTION
     at 224^2 grows its activations to ~1e5 (logits ~7e3), where the
@@ -730,7 +779,7 @@ def build_models(torch, seed, frames, base_model="resnet50"):
     (plain path, fp32); both models then hold the same weights."""
     from ehgr_tpu_torch.models.tsn import variant
 
-    models = [variant("tsn", num_class=CLASSES, num_segments=T,
+    models = [variant(arch, num_class=CLASSES, num_segments=T,
                       base_model=base_model, temporal="action",
                       action_fused=mode, dtype=torch.float32, device="cuda",
                       generator=torch.Generator().manual_seed(seed))
@@ -1764,14 +1813,18 @@ class LoopWatch:
     counter and loss; each validation's launches; the non-strict load's
     skipped keys and the keys the model kept from its init; the loop's
     timing records (``record.loop``).  ``first_state(state)``, if given,
-    is called with the state before the first step."""
+    is called with the state before the first step.  Each
+    ``make_train_step`` call opens a stage (one a ``run_training``): its
+    steps are tagged with its index and timed (the card synchronised
+    around the call), and its first step's peak memory above what was
+    allocated before it is kept in ``stages``."""
 
     def __init__(self, torch, first_state=None):
         from ehgr_tpu_torch.train import loop
 
         self.torch, self.loop, self.first_state = torch, loop, first_state
         self.steps, self.val_launches, self.events = [], [], []
-        self.transfer = None
+        self.stages, self.transfer = [], None
 
     def __enter__(self):
         loop, self._saved = self.loop, {}
@@ -1782,16 +1835,31 @@ class LoopWatch:
 
         def make_train_step(*a, **k):
             step = make(*a, **k)
+            stage = len(self.stages)
+            self.stages.append({})
+            cuda = self.torch.cuda
 
             def watched(state, batch, gen):
                 if not self.steps and self.first_state:
                     self.first_state(state)
+                first = not self.stages[stage]
+                cuda.synchronize()
+                if first:
+                    cuda.reset_peak_memory_stats()
+                    base = cuda.memory_allocated()
                 before = _launches()
+                t0 = time.perf_counter()
                 state, metrics = step(state, batch, gen)
+                cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
                 after = _launches()
+                if first:
+                    self.stages[stage]["first_step_peak_bytes"] = \
+                        cuda.max_memory_allocated() - base
                 self.steps.append(dict(
                     step=state.step, loss=metrics["loss"].detach(),
-                    launches={k: v - before[k] for k, v in after.items()}))
+                    launches={k: v - before[k] for k, v in after.items()},
+                    stage=stage, ms=ms))
                 return state, metrics
             return watched
 
@@ -1828,10 +1896,12 @@ class LoopWatch:
         logging.getLogger(self.loop.__name__).removeHandler(self._handler)
         return False
 
-    def summary(self, name, want, steps, res, wall, launches):
-        """Gates shared by the trainer phases: ``steps`` steps, each
-        launching exactly ``want`` (kernel -> count, the others 0), none in
-        validation, finite losses; returns the phase's JSON."""
+    def summary(self, name, want, steps, res, wall, launches,
+                clips=TRAIN_CLIPS):
+        """Gates shared by the trainer phases: ``steps`` steps of ``clips``
+        clips, each launching exactly ``want`` (kernel -> count, the others
+        0), none in validation, finite losses; returns the phase's JSON
+        with each stage's step times and first-step peak memory."""
         want = {k: want.get(k, 0) for k in launches}
         losses = [float(s["loss"]) for s in self.steps]
         for i, s in enumerate(self.steps):
@@ -1845,7 +1915,7 @@ class LoopWatch:
                                  f"{self.val_launches}, losses {losses}")
         epochs = [e for e in self.events if e["event"] == "train"]
         out = dict(
-            steps=len(self.steps), clips=TRAIN_CLIPS, launches=launches,
+            steps=len(self.steps), clips=clips, launches=launches,
             launches_per_step=self.steps[0]["launches"], losses=losses,
             last_step=self.steps[-1]["step"], wall_s=wall,
             epochs=[dict(epoch=e["epoch"], steps=e["steps"],
@@ -1860,6 +1930,9 @@ class LoopWatch:
                    if e["event"] == "save"],
             restore=[dict(s=e["seconds"], step=e["step"], epoch=e["epoch"])
                      for e in self.events if e["event"] == "restore"],
+            stages=[dict(st, ms_per_step=[s["ms"] for s in self.steps
+                                          if s["stage"] == i])
+                    for i, st in enumerate(self.stages)],
             result={k: v for k, v in res.items() if k != "run_dir"})
         print(f"{name} " + json.dumps(out), flush=True)
         return out
@@ -2324,6 +2397,312 @@ def backbones(torch, seed, batches, card):
             base_model=family,
             zero_grad=BACKBONE_ZERO_GRAD.get(family, lambda keys: ()))
     return out, paths
+
+
+# ---------------------------------------------------------------------------
+# the fifteenth slice: the dress rehearsal, the SD-from-ACTION-Net test CLI,
+# GradCAM, the case study and the reproduction chain
+# ---------------------------------------------------------------------------
+
+def slice_checks(torch, mega, shk, n, gen):
+    """The kernels against their plain versions at the shapes this slice's
+    paths give them: ``action_stats`` / ``action_apply`` at every site at
+    the rehearsal's 32 clips, GradCAM's 2 and the reproduce smoke's 4 at
+    T=4, 32^2 (S = 64 ... 1); the learnable shift at the rehearsal's and
+    the smoke's sites; fp32 and bf16."""
+    checks = check_kernels(torch, mega, n, gen, shapes=(
+        [(k, T) + s[:3] for k in (REHEARSAL_CLIPS, CAM_VIDEOS)
+         for s in SITES] +
+        [(REPRO_CLIPS, REPRO_T) + s[:3] for s in REPRO_SITES]))[0]
+    checks += check_shift(torch, shk, n, gen, shapes=(
+        [(REHEARSAL_CLIPS, T, s, c) for s, c, _ in _shift_shapes()] +
+        [(REPRO_CLIPS, REPRO_T, s, c)
+         for s, c, _ in _shift_shapes(REPRO_SITES)]))
+    return checks
+
+
+def _best_files(root):
+    """``rehearsal_best_ckpt.pth`` files under ``root``, by stage."""
+    out = {}
+    for d, _, files in os.walk(root):
+        if "rehearsal_best_ckpt.pth" in files:
+            out[os.path.basename(os.path.dirname(d))] = os.path.join(
+                d, "rehearsal_best_ckpt.pth")
+    return out
+
+
+def rehearsal(torch, tmp):
+    """A main path: ``cli.dress_rehearsal`` at its protocol defaults
+    (REHEARSAL_ARGV: 224^2, T=8, 83 classes, 'vjp', 32 clips a step) under
+    ``tmp``: MTMM, the SD transfer, SD, the 4-head test.  Each train step
+    launches the four kernels 16 times (every stats on the window kernel,
+    every shift backward on the strip kernel), validation and the test none
+    ('vjp' is the plain formulation at eval); ``ok``, finite losses and
+    both stages' best files.  Prints each stage's wall, ms a step and
+    first-step peak memory."""
+    from ehgr_tpu_torch.cli import dress_rehearsal
+
+    out_dir = os.path.join(tmp, "rehearsal")
+    with LoopWatch(torch) as w:
+        reset_counters()
+        t0 = time.perf_counter()
+        report = dress_rehearsal.main(REHEARSAL_ARGV + ["--out", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    out = w.summary("rehearsal", {**SHIFT_STEP, **MEGA_FORWARD},
+                    2 * REHEARSAL_STEPS, report, wall, launches,
+                    clips=REHEARSAL_CLIPS)
+    best = _best_files(out_dir)
+    with open(os.path.join(out_dir, "rehearsal_report.json")) as f:
+        written = json.load(f)
+    if not report.get("ok") or written != report or \
+            not all(math.isfinite(report[k]) for k in ("mtmm_loss",
+                                                       "sd_loss")) or \
+            sorted(best) != ["MTMM", "SD"] or len(w.stages) != 2:
+        raise AssertionError(f"rehearsal: report {report}, best files "
+                             f"{best}, stages {w.stages}")
+    out["best"] = best
+    out["readings"] = dict(
+        card=report["card"],
+        wall_s={k: report[f"{k}_wall_s"] for k in ("mtmm", "sd", "test")},
+        ms_per_step={name: st["ms_per_step"] for name, st in
+                     zip(("mtmm", "sd"), out["stages"])},
+        first_step_peak_bytes={name: st["first_step_peak_bytes"] for
+                               name, st in zip(("mtmm", "sd"),
+                                               out["stages"])},
+        launches_per_step=out["launches_per_step"])
+    print("rehearsal_readings " + json.dumps(out["readings"]), flush=True)
+    return out
+
+
+def sd_actionnet(torch, best):
+    """A main path: ``cli.test_sd_actionnet`` on the rehearsal's SD
+    ``best`` (``ego_sd`` on the synthetic videos, 2 clips a video as the
+    rehearsal tests, 4 videos a forward) in 'prologue' (16
+    ``action_prologue_window`` launches a forward) and in 'vjp' (none:
+    the plain formulation at eval), the 'vjp' result equal to
+    ``cli.test_sd``'s, neither with a confusion matrix; the 'prologue'
+    heads held to the plain model's on the first batch by the SD-head gate
+    (``_mode_gate``)."""
+    from ehgr_tpu_torch.cli import test_sd, test_sd_actionnet
+    from ehgr_tpu_torch.configs import config_from_args
+    from ehgr_tpu_torch.data.factory import build_test_dataset
+    from ehgr_tpu_torch.data.pipeline import Loader
+
+    def argv(mode):
+        return ["--preset", "ego_sd", "--synthetic", "--synthetic_videos",
+                str(RUN_VIDEOS), "--clip_num", "2", "--checkpoint_path",
+                best, "--action_fused", mode]
+
+    forwards = max(RUN_VIDEOS // 2, 32) // 4
+    out = {}
+    for mode, want in (("prologue", PROLOGUE_FORWARD), ("vjp", {})):
+        reset_counters()
+        t0 = time.perf_counter()
+        res = test_sd_actionnet.main(argv(mode) + ["--device", "cuda"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        want = {k: want.get(k, 0) * forwards for k in launches}
+        if launches != want or "confusion" in res or \
+                res["n_videos"] != forwards * 4:
+            raise AssertionError(f"sd_actionnet {mode}: launches "
+                                 f"{launches}, want {want}, result {res}")
+        out[mode] = dict(launches=launches, result=res, seconds=wall,
+                         clips_per_s=res["n_videos"] * 2 / wall)
+    ref = test_sd.main(argv("vjp") + ["--device", "cuda"])
+    if ref != out["vjp"]["result"]:
+        raise AssertionError(f"sd_actionnet: 'vjp' {out['vjp']['result']} "
+                             f"against cli.test_sd {ref}")
+    cfg = config_from_args(argv("prologue"), default_preset="ego_sd")
+    frames = next(iter(Loader(build_test_dataset(cfg), batch_size=4,
+                              shuffle=False, num_workers=0)))["rgb"]
+    out["heads"] = _mode_gate(torch, cfg, "tsn_sd", 4, frames, (),
+                              HEADS_BF16_SLACK)
+    print("sd_actionnet " + json.dumps(out), flush=True)
+    for g in out["heads"]:
+        if not g["ok"]:
+            raise AssertionError(f"sd_actionnet: {g['head']} probabilities "
+                                 f"in 'prologue': {g}")
+    return out
+
+
+def gradcam_phase(torch, seed, batches, tmp):
+    """A main path: ``gradcam`` on the full-width ``tsn`` (exit ``final``)
+    and ``tsn_sd`` (``final``, ``mid1-3``) built as ``build_models``
+    builds them, in fp32 (TF32 off) on CAM_VIDEOS clips of the first
+    request batch, class from the argmax: the 'mega' models' calls counted
+    (16 ``action_stats`` + 16 ``action_apply`` a call, on the fp32 route);
+    the layer taps of the 'mega' and the plain model within TOL (fp32);
+    each CAM against the plain model's in float64, within WORST_X times the
+    plain fp32 model's error plus CAM_TOL (see CAM_TOL), and the same class
+    as the plain fp32 model (the 'mega' CAM's distance from the plain fp32
+    one printed beside); one call timed with ``utils.profiling.time_fn``
+    and one traced with ``utils.profiling.trace``, whose device kernels
+    must include the ACTION kernels."""
+    from ehgr_tpu_torch.eval.gradcam import gradcam
+    from ehgr_tpu_torch.utils import profiling
+
+    clip = _clips(torch, batches[0][0][:, :1])          # [2, T, 224, 224, 3]
+    out, calls, launches = {}, 0, None
+    for arch, exits in CAM_EXITS.items():
+        mega_model, plain = build_models(torch, seed, batches[0][0],
+                                         arch=arch)
+        for m in (mega_model, plain):
+            m.dtype = torch.float32
+        with torch.no_grad():
+            taps = [m(clip, return_taps=True)[1] for m in (mega_model, plain)]
+        r = out[f"{arch}_taps"] = dict(
+            max_rel_err={k: _rel_err(taps[0][k], taps[1][k])[1]
+                         for k in ("layer1", "layer2", "layer3", "layer4")},
+            tol=TOL["float32"])
+        r["ok"] = max(r["max_rel_err"].values()) <= r["tol"]
+        del taps
+        for ex in exits:
+            before = _launches()
+            cam, logits = gradcam(mega_model, clip, exit=ex)
+            torch.cuda.synchronize()
+            after = _launches()
+            launches = {k: after[k] - before[k] + (launches or {}).get(k, 0)
+                        for k in after}
+            calls += 1
+            plain_cam, plain_logits = gradcam(plain, clip, exit=ex)
+            plain.double().dtype = torch.float64
+            ref, _ = gradcam(plain, clip.double(), exit=ex)
+            plain.float().dtype = torch.float32
+            err = float(np.abs(cam - ref).max())
+            plain_err = float(np.abs(plain_cam - ref).max())
+            r = out[f"{arch}_{ex}"] = dict(
+                cam_shape=list(cam.shape), max_abs_err=err,
+                plain_max_abs_err=plain_err,
+                tol=WORST_X * plain_err + CAM_TOL,
+                vs_plain_fp32=float(np.abs(cam - plain_cam).max()),
+                logit_err=float(np.abs(logits - plain_logits).max()),
+                cls=int(np.argmax(logits[0])),
+                plain_cls=int(np.argmax(plain_logits[0])))
+            r["ok"] = bool(err <= r["tol"] and r["cls"] == r["plain_cls"]
+                           and np.isfinite(cam).all())
+        if arch == "tsn":
+            out["time"] = profiling.time_fn(
+                lambda: gradcam(mega_model, clip), warmup=1, iters=5)
+            with profiling.trace(os.path.join(tmp, "gradcam_trace")) as prof:
+                gradcam(mega_model, clip)
+            names = {e.key for e in prof.key_averages()
+                     if str(e.device_type).endswith("CUDA")}
+            out["traced_action_kernels"] = sorted(
+                k for k in names if any(w in k for w in ACTION_KERNEL_WORDS))
+            out["trace_bytes"] = os.path.getsize(
+                os.path.join(tmp, "gradcam_trace", "trace.json"))
+        del mega_model, plain
+    want = {k: 0 for k in launches}
+    want.update(action_stats=16 * calls, action_apply=16 * calls)
+    out["launches"] = launches
+    print("gradcam " + json.dumps(out), flush=True)
+    bad = [k for k, r in out.items() if isinstance(r, dict) and
+           r.get("ok") is False]
+    if bad or launches != want or not out["traced_action_kernels"]:
+        raise AssertionError(f"gradcam: misses {bad}, launches {launches} "
+                             f"(want {want}), traced ACTION kernels "
+                             f"{out['traced_action_kernels']}")
+    return out
+
+
+def case_study_phase(torch, seed, batches):
+    """A main path: ``case_study_scores`` of the serve model ('mega', bf16)
+    on CASE_VIDEOS videos of the synthetic test source ``cli.case_study``
+    reads (``ego_baseline``, RUN_CLIPS clips each), 16 + 16 launches a
+    video; against the plain model: the fp32 predictions equal and the
+    fp32 probabilities within LOGIT_TOL, the bf16 probabilities within the
+    logit gate's rule (BF16_SLACK times the plain model's own bf16 error,
+    plus LOGIT_TOL), a bf16 prediction that differs only where the fp32
+    probabilities of the two classes lie within that bound."""
+    import dataclasses
+
+    from ehgr_tpu_torch.configs import get_preset
+    from ehgr_tpu_torch.data.factory import build_test_dataset
+    from ehgr_tpu_torch.eval.case_study import case_study_scores
+
+    cfg = get_preset("ego_baseline")
+    cfg = cfg.replace(data=dataclasses.replace(cfg.data,
+                                               backend="synthetic"))
+    data = build_test_dataset(cfg)
+    videos = [data[i]["rgb"] for i in range(CASE_VIDEOS)]
+    mega_model, plain = build_models(torch, seed, batches[0][0])
+    reset_counters()
+    t0 = time.perf_counter()
+    probs = {("mega", "bfloat16"): [case_study_scores(mega_model, v)
+                                    for v in videos]}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _launches()
+    for mode, m in (("mega", mega_model), ("none", plain)):
+        for dname in ("bfloat16", "float32"):
+            m.dtype = getattr(torch, dname)
+            if (mode, dname) not in probs:
+                probs[mode, dname] = [case_study_scores(m, v)
+                                      for v in videos]
+    del mega_model, plain
+    p = {k: torch.stack(v) for k, v in probs.items()}
+    ref = p["none", "float32"]
+    pred = {k: v.argmax(-1).tolist() for k, v in p.items()}
+    fp32 = _rel_err(p["mega", "float32"], ref)[1]
+    mine = _rel_err(p["mega", "bfloat16"], ref)[1]
+    theirs = _rel_err(p["none", "bfloat16"], ref)[1]
+    tol = BF16_SLACK * theirs + LOGIT_TOL
+    scale = ref.abs().max().item()
+    flips = [i for i, (a, b) in enumerate(zip(pred["mega", "bfloat16"],
+                                              pred["none", "bfloat16"]))
+             if a != b and abs(ref[i, a] - ref[i, b]).item() > tol * scale]
+    want = {k: MEGA_FORWARD.get(k, 0) * CASE_VIDEOS for k in launches}
+    out = dict(videos=CASE_VIDEOS, clips=RUN_CLIPS, launches=launches,
+               seconds=wall, clips_per_s=CASE_VIDEOS * RUN_CLIPS / wall,
+               predictions={f"{m}_{d}": v for (m, d), v in pred.items()},
+               fp32_rel=fp32, fp32_tol=LOGIT_TOL, bf16_rel=mine,
+               plain_bf16_rel=theirs, bf16_tol=tol, bf16_flips=flips)
+    print("case_study " + json.dumps(out), flush=True)
+    if launches != want or fp32 > LOGIT_TOL or mine > tol or flips or \
+            pred["mega", "float32"] != pred["none", "float32"] or \
+            not all(torch.isfinite(v).all() for v in p.values()):
+        raise AssertionError(f"case_study: {out}, want launches {want}")
+    return out
+
+
+def reproduce_smoke(torch, tmp):
+    """A main path: ``cli.reproduce --row ego_mtmm_sd --smoke`` on the card
+    (``train_mtmm``, ``train_sd`` from its best, ``test_sd`` on the SD
+    best; T=4, 32^2, 4 clips a step, 3 steps a train stage): each step
+    launches the four kernels 16 times at S = 64 ... 1, validation and
+    the test none; finite stage losses and a ``final_top1``."""
+    from ehgr_tpu_torch.cli import reproduce
+
+    results = []
+    run_row = reproduce.run_row
+
+    def recorded(row, args):
+        results.append(run_row(row, args))
+        return results[-1]
+
+    reproduce.run_row = recorded
+    try:
+        with LoopWatch(torch) as w:
+            reset_counters()
+            t0 = time.perf_counter()
+            rc = reproduce.main(["--row", "ego_mtmm_sd", "--smoke",
+                                 "--work_dir", os.path.join(tmp, "repro")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _launches()
+    finally:
+        reproduce.run_row = run_row
+    res = results[0]
+    out = w.summary("reproduce_smoke", {**SHIFT_STEP, **MEGA_FORWARD},
+                    2 * REPRO_STEPS, res, wall, launches, clips=REPRO_CLIPS)
+    if rc != 0 or not all(math.isfinite(res[f"stage{i}_train_loss"])
+                          for i in (0, 1)) or \
+            not 0 <= res.get("final_top1", -1) <= 100:
+        raise AssertionError(f"reproduce_smoke: rc {rc}, result {res}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -3979,6 +4358,23 @@ def main(argv=None) -> int:
                     shk, tk, n, gen)
     bb, bb_paths = phase("backbones", backbones, torch, args.seed, batches,
                          smi)
+
+    # the dress rehearsal at 32 clips a step, the SD test CLI on its best,
+    # GradCAM, the case study and the reproduction chain
+    checks += phase("slice_checks", slice_checks, torch, mega, shk, n, gen)
+    slice_dir = tempfile.TemporaryDirectory()
+    reh = phase("rehearsal", rehearsal, torch, slice_dir.name)
+    sd_an = phase("sd_actionnet", sd_actionnet, torch, reh["best"]["SD"])
+    cam = phase("gradcam", gradcam_phase, torch, args.seed, batches,
+                slice_dir.name)
+    case = phase("case_study", case_study_phase, torch, args.seed, batches)
+    repro = phase("reproduce_smoke", reproduce_smoke, torch, slice_dir.name)
+    slice_dir.cleanup()
+    new_phases = ("slice_checks", "rehearsal", "sd_actionnet", "gradcam",
+                  "case_study", "reproduce_smoke")
+    print("slice_phase_seconds " + json.dumps(
+        {**{k: phases[k] for k in new_phases},
+         "total": sum(phases[k] for k in new_phases)}), flush=True)
     coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
@@ -4006,7 +4402,10 @@ def main(argv=None) -> int:
                 if isinstance(v, dict)},
              **{f"cascade_{k}": v for k, v in casc.items()},
              **{f"stream_{k}": v for k, v in stream.items()},
-             **bb_paths}
+             **bb_paths, "rehearsal": reh,
+             "sd_actionnet_prologue": sd_an["prologue"],
+             "sd_actionnet_vjp": sd_an["vjp"], "gradcam": cam,
+             "case_study": case, "reproduce_smoke": repro}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -4028,6 +4427,9 @@ def main(argv=None) -> int:
                       "serve_dispatch": dispatch, "preprocess": prep,
                       "export_serve": exported, "cascade": casc,
                       "stream": stream, "backbones": bb,
+                      "rehearsal": reh, "sd_actionnet": sd_an,
+                      "gradcam": cam, "case_study": case,
+                      "reproduce_smoke": repro,
                       "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)

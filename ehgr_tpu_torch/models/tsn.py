@@ -153,11 +153,20 @@ class TSN(nn.Module):
                          self.consensus_type).float()
 
     def forward(self, x: torch.Tensor,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                return_taps: bool = False):
         """``[N, T, H, W, 3]`` -> f32 logits ``[N, classes]`` (plus the
         depth map, or the SD tuple, or exit K's logits alone; see the class
         docstring).  Training with dropout needs ``generator``, a
-        ``torch.Generator`` on the input's device."""
+        ``torch.Generator`` on the input's device.  ``return_taps`` returns
+        ``(out, taps)`` on every surface: the backbone's dict (``stem``,
+        ``layer1..4`` as far as the model runs, channels_last ``[N*T, C,
+        h, w]`` in the compute dtype, and ``pool`` ``[N*T, C]``)."""
+        out, taps = self._forward(x, generator)
+        return (out, taps) if return_taps else out
+
+    def _forward(self, x: torch.Tensor,
+                 generator: Optional[torch.Generator]):
         n, t = x.shape[0], x.shape[1]
         if t != self.num_segments:
             raise ValueError(f"got {t} segments, model has "
@@ -171,7 +180,7 @@ class TSN(nn.Module):
             mid_feas.append(h.float())                  # [NT, 2048]
             mids.append(self._head(getattr(self, f"middle_fc{k}"), h))
         if self.truncate_at:
-            return mids[0]
+            return mids[0], taps
         feat = taps["pool"]                             # [NT, 2048]
         final_fea = feat
         if self.training and self.dropout > 0:
@@ -190,11 +199,12 @@ class TSN(nn.Module):
             if self.with_text:
                 extras += (self.text_encoder(final_fea.reshape(
                     -1, self.num_segments, final_fea.shape[-1])).float(),)
-            return (logits, *mids, final_fea.float(), *mid_feas, *extras)
+            return (logits, *mids, final_fea.float(), *mid_feas,
+                    *extras), taps
         if not self.with_depth:
-            return logits
+            return logits, taps
         depth = self.global_decoder(taps["layer4"])     # [NT, 1, h, w]
-        return logits, depth.permute(0, 2, 3, 1).float()
+        return (logits, depth.permute(0, 2, 3, 1).float()), taps
 
 
 _MIDDLE = {"tsn_middle1": 1, "tsn_middle2": 2, "tsn_middle3": 3}

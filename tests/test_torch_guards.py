@@ -73,7 +73,18 @@ def test_every_module_is_found():
                  "ehgr_tpu_torch.models.bn_inception",
                  "ehgr_tpu_torch.models.res2net",
                  "ehgr_tpu_torch.models.modality",
-                 "ehgr_tpu_torch.models.byot_resnet"):
+                 "ehgr_tpu_torch.models.byot_resnet",
+                 "ehgr_tpu_torch.utils.profiling",
+                 "ehgr_tpu_torch.eval.gradcam",
+                 "ehgr_tpu_torch.eval.case_study",
+                 "ehgr_tpu_torch.data.pseudo_depth",
+                 "ehgr_tpu_torch.cli.cam_visualize",
+                 "ehgr_tpu_torch.cli.case_study",
+                 "ehgr_tpu_torch.cli.train_sd_actionnet",
+                 "ehgr_tpu_torch.cli.test_sd_actionnet",
+                 "ehgr_tpu_torch.cli.prepare_data",
+                 "ehgr_tpu_torch.cli.dress_rehearsal",
+                 "ehgr_tpu_torch.cli.reproduce"):
         assert want in mods
 
 
