@@ -182,6 +182,22 @@ Phases; any miss raises and the run exits nonzero:
    plain; ``cli.reproduce --row ego_mtmm_sd --smoke`` (T=4, 32^2, S down
    to 1x1).
 
+18. the last model families, none with a kernel on its path (each main
+   path must launch none): ``video3d``, R(2+1)D-18 (T=8, 224^2, bf16)
+   serving the request batches and SlowOnly-R50 the same, each after its
+   fp32 logits on one clip against the port on the CPU (within 1e-3) and
+   its bf16 logits' cosine to fp32 (>= 0.99); two ``r2plus1d_mtmm`` mtmm
+   steps of 8 clips (ms a step, the first apart, first-step peak) and its
+   fp32 gradient at 112^2 against a CPU float64 run in both BN settings,
+   the CPU fp32 run the floor; ``cli.train_slowonly`` (2 steps of 8
+   clips); ``videomae``, ViT-B/16 at T=16 (1568 tokens): the same gates,
+   a bf16 forward of 8 clips and ``cli.train_videomae`` (2 steps, the
+   first-step peak); ``dpt``, DPT-Large at 384^2 in fp32: one frame
+   against the CPU (its depth checked non-degenerate first), a forward of
+   8 frames, then ``midas_predictor`` on a MiDaS-keyed file saved from
+   the model over four 480x640 frames (against the model's own depth) and
+   ``generate_pseudo_depth_tree`` over them as JPEGs.
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
 without CUDA it exits nonzero before doing anything.
@@ -750,13 +766,15 @@ def _clips(torch, frames):
 
 def set_bn_stats(torch, model, clips):
     """Set each BN's running statistics from its input on one eval
-    forward of ``model`` over ``clips`` ``[N, T, H, W, 3]``."""
+    forward of ``model`` over ``clips`` ``[N, T, H, W, 3]`` (its device and
+    dtype)."""
     from ehgr_tpu_torch.models.norm import BatchNorm
 
     def set_stats(bn, inputs):
         x = inputs[0].float()
-        bn.running_mean.copy_(x.mean((0, 2, 3)))
-        bn.running_var.copy_(x.var((0, 2, 3), unbiased=False))
+        dims = (0,) + tuple(range(2, x.dim()))      # 2-D and 3-D BNs
+        bn.running_mean.copy_(x.mean(dims))
+        bn.running_var.copy_(x.var(dims, unbiased=False))
 
     hooks = [m.register_forward_pre_hook(set_stats)
              for m in model.modules() if isinstance(m, BatchNorm)]
@@ -983,14 +1001,16 @@ def compare_logits(torch, mega_model, plain, frames):
     return out
 
 
-def profile_forward(torch, model, frames, heads=1, name="profile"):
+def profile_forward(torch, model, frames, heads=1, name="profile",
+                    shapes=False):
     """Device time by kernel name over one scorer call (torch.profiler),
-    beside the call's wall time."""
+    beside the call's wall time; with ``shapes``, also each convolution's
+    kernels by its input and weight shapes (``_conv_kernels``)."""
     from ehgr_tpu_torch.eval.inference import make_score_fn
 
     score = make_score_fn(model, device="cuda", crop_size=CROP,
                           dtype_name="bfloat16", heads=heads)
-    out = _device_profile(torch, lambda: score(frames))
+    out = _device_profile(torch, lambda: score(frames), shapes=shapes)
     print(f"{name} " + json.dumps(out), flush=True)
     return out
 
@@ -1017,14 +1037,16 @@ def _train_model(torch, seed, mode, dtype, dropout, arch="tsn_mtmm",
                    generator=torch.Generator().manual_seed(seed))
 
 
-def run_steps(torch, name, model, stage, seed, want, steps=TRAIN_STEPS):
+def run_steps(torch, name, model, stage, seed, want, steps=TRAIN_STEPS,
+              policies=True):
     """``make_train_step(stage=...)`` on ``model`` with the recipe's
-    optimizer settings: one warm-up step (its peak memory above what the
-    fresh state holds, as ``remat_step`` reads it), then ``steps`` steps
-    with the launch counters zeroed just before and read after each step;
-    each step must launch exactly ``want`` (kernel -> count, the others
-    0).  Returns the result and the warm (step, state, batch,
-    generator)."""
+    optimizer settings (``policies=False``: one parameter group): one
+    warm-up step (its peak memory above what the fresh state holds, as
+    ``remat_step`` reads it, and its ms, cuDNN's plan search included),
+    then ``steps`` steps with the launch counters zeroed just before and
+    read after each step; each step must launch exactly ``want`` (kernel ->
+    count, the others 0).  Returns the result and the warm (step, state,
+    batch, generator)."""
     from ehgr_tpu_torch.configs import LossConfig, OptimConfig
     from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
                                                       IMAGENET_STD)
@@ -1033,7 +1055,8 @@ def run_steps(torch, name, model, stage, seed, want, steps=TRAIN_STEPS):
                                             make_train_step)
 
     opt, _ = build_optimizer(model, OptimConfig(lr=0.00125,
-                                                weight_decay=1e-5),
+                                                weight_decay=1e-5,
+                                                policies=policies),
                              partial_bn=False)
     state = create_train_state(model, opt)
     step = make_train_step(model, opt, stage=stage,
@@ -1047,8 +1070,10 @@ def run_steps(torch, name, model, stage, seed, want, steps=TRAIN_STEPS):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
     step(state, batches[0], gen)                 # warm-up: cuDNN plans
     torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
     first_peak = torch.cuda.max_memory_allocated() - base
 
     counters = _counters()
@@ -1085,7 +1110,7 @@ def run_steps(torch, name, model, stage, seed, want, steps=TRAIN_STEPS):
                clips_per_s=TRAIN_CLIPS / mean_ms * 1e3,
                losses=[m["loss"] for m in metrics], metrics=metrics,
                params_moved=moved, ema_moved=ema_moved, n_params=len(p0),
-               first_step_peak_bytes=first_peak)
+               first_step_peak_bytes=first_peak, first_step_ms=first_ms)
     print(f"{name} " + json.dumps(out), flush=True)
     return out, (step, state, batches[1], gen)
 
@@ -2706,6 +2731,442 @@ def reproduce_smoke(torch, tmp):
 
 
 # ---------------------------------------------------------------------------
+# the sixteenth slice: the last model families (R(2+1)D-18 with its MTMM
+# decoder, SlowOnly-R50, VideoMAE-Base, DPT-Large and the MiDaS predictor);
+# none has a custom kernel on its path, so each main path must launch none
+# ---------------------------------------------------------------------------
+
+# clips / frames of the CPU fp32 reference runs of the card's fp32 outputs
+REF_CLIPS = 1
+# the card's fp32 outputs against the port's on the CPU (max |d| / max |ref|)
+# and the bf16 logits' cosine against the card's fp32 ones
+CPU_REL_TOL, BF16_COS = 1e-3, 0.99
+# the fp32 gradient gate of r2plus1d_mtmm: clips at R(2+1)D's own 112^2
+# (the decoder's map is then 28^2), so its CPU float64 run stays short
+V3D_GRAD_CLIPS, V3D_GRAD_CROP = 2, 112
+V3D_TRAIN_STEPS = 2
+# the trainer CLIs: 16 synthetic videos in batches of 8 = 2 steps
+SLICE16_TRAIN_ARGV = ["--synthetic", "--synthetic_videos", "16",
+                      "--batch_size", "8", "--epochs", "1", "--device",
+                      "cuda"]
+VIT_T, VIT_CLIPS = 16, 8
+DPT_SIZE, DPT_FRAMES = 384, 8
+MIDAS_FRAMES, MIDAS_GEOM = 4, (480, 640)
+
+
+def _no_launches(name, launches):
+    if any(launches.values()):
+        raise AssertionError(f"{name}: launches {launches}, want none")
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return (a @ b / (a.norm() * b.norm())).item()
+
+
+def card_vs_cpu(torch, name, model, cpu_model, x, bf16=True,
+                check_ref=None):
+    """The card's fp32 outputs of ``model`` on the first REF_CLIPS clips or
+    frames of ``x`` against ``cpu_model`` (the same weights) on the CPU in
+    fp32: max |d| / max |ref| within CPU_REL_TOL for each output; with
+    ``bf16`` the card's bf16 first output's cosine against its fp32 one
+    over all of ``x`` (>= BF16_COS).  ``check_ref`` is called with the
+    CPU outputs before any error is read.  The model is left in its compute
+    dtype."""
+    dtype = model.dtype
+    with torch.inference_mode():
+        model.dtype = torch.float32
+        card = model(x)
+        ref = cpu_model(x[:REF_CLIPS].cpu())
+        if bf16:
+            model.dtype = torch.bfloat16
+            low = model(x)
+    model.dtype = dtype
+    card, ref = (o if isinstance(o, tuple) else (o,) for o in (card, ref))
+    out = dict(outputs=[], **(check_ref(ref) if check_ref else {}))
+    for c, r in zip(card, ref):
+        c = c[:REF_CLIPS]
+        err, rel = _rel_err(c.cpu(), r)
+        out["outputs"].append(dict(shape=list(c.shape), max_abs_ref=r.abs()
+                                   .max().item(), max_abs_err=err,
+                                   max_rel_err=rel, tol=CPU_REL_TOL))
+        if not (torch.isfinite(c).all() and rel <= CPU_REL_TOL):
+            raise AssertionError(f"{name}: card fp32 vs CPU fp32 rel "
+                                 f"{rel:.3e}")
+    if bf16:
+        low = low if isinstance(low, tuple) else (low,)
+        out["bf16_cosine"] = _cosine(low[0], card[0])
+        out["bf16_max_rel_err"] = _rel_err(low[0], card[0])[1]
+        if not out["bf16_cosine"] >= BF16_COS:
+            raise AssertionError(f"{name}: bf16 cosine "
+                                 f"{out['bf16_cosine']:.5f}")
+    print(f"{name}_vs_cpu " + json.dumps(out), flush=True)
+    return out
+
+
+def _cpu_twin(torch, cls, model, **kw):
+    """``cls(**kw)`` on the CPU with ``model``'s weights and statistics."""
+    twin = cls(device="cpu", **kw)
+    twin.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return twin.eval()
+
+
+def _video3d_grads(torch, seed, setting, card):
+    """Loss and gradients of one fp32 stage-``mtmm`` forward/backward of
+    ``r2plus1d_mtmm`` (dropout 0) at V3D_GRAD_CROP on the card and on the
+    CPU in fp32 and float64, from the same weights and batch; ``setting``
+    ``bn_running`` sets every BN's statistics from the batch and freezes
+    it.  Also the eval outputs of the card against the CPU fp32 run."""
+    from ehgr_tpu_torch.configs import LossConfig
+    from ehgr_tpu_torch.models.norm import BatchNorm
+    from ehgr_tpu_torch.models.video3d import R2Plus1D18
+    from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
+                                                      IMAGENET_STD,
+                                                      normalize_clip)
+    from ehgr_tpu_torch.train.steps import make_loss_fn
+
+    rng = np.random.default_rng(seed + 16)
+    shape = (V3D_GRAD_CLIPS, T, V3D_GRAD_CROP, V3D_GRAD_CROP)
+    batch = {"rgb": torch.as_tensor(rng.integers(0, 256, shape + (3,),
+                                                 dtype=np.uint8)),
+             "depth": torch.as_tensor(rng.integers(0, 256, shape + (1,),
+                                                   dtype=np.uint8)),
+             "label": torch.as_tensor(rng.integers(0, CLASSES,
+                                                   (V3D_GRAD_CLIPS,)))}
+    base = R2Plus1D18(CLASSES, dropout=0.0, with_depth=True, device="cpu",
+                      generator=torch.Generator().manual_seed(seed))
+    set_bn_stats(torch, base, normalize_clip(batch["rgb"]))
+    state = base.state_dict()
+    runs = {}
+    for name, dev, dtype in (("card", "cuda", torch.float32),
+                             ("cpu", "cpu", torch.float32),
+                             ("float64", "cpu", torch.float64)):
+        model = R2Plus1D18(CLASSES, dropout=0.0, with_depth=True,
+                           device=dev)
+        model.load_state_dict(state)
+        model.to(dtype).dtype = dtype
+        if name != "float64":
+            x = normalize_clip(batch["rgb"].to(dev))
+            with torch.inference_mode():
+                runs[f"{name}_eval"] = [o.cpu() for o in model.eval()(x)]
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.frozen = setting == "bn_running"
+        loss_fn = make_loss_fn(model.train(), stage="mtmm",
+                               loss_cfg=LossConfig(
+                                   depth_size=V3D_GRAD_CROP // 4),
+                               mean=IMAGENET_MEAN, std=IMAGENET_STD)
+        total, _, _ = loss_fn({k: v.to(dev) for k, v in batch.items()},
+                              None)
+        total.backward()
+        runs[name] = (total.item(), {k: p.grad.double().cpu()
+                                     for k, p in model.named_parameters()})
+    eval_rel = [_rel_err(c, r)[1] for c, r in zip(runs["card_eval"],
+                                                  runs["cpu_eval"])]
+    if not max(eval_rel) <= CPU_REL_TOL:
+        raise AssertionError(f"r2plus1d_mtmm eval at {V3D_GRAD_CROP}^2: "
+                             f"card vs CPU rel {eval_rel}")
+    loss64, ref = runs["float64"]
+    errs = {name: {k: _rel_err(g[k], ref[k])[1] for k in ref}
+            for name, (_, g) in runs.items() if name in ("card", "cpu")}
+    stat = {name: _grad_stats(e) for name, e in errs.items()}
+    tol = {q: x * stat["cpu"][q] + GRAD_TOL
+           for q, x in (("median", GRAD_X), ("p95", GRAD_X),
+                        ("worst", WORST_X))}
+    loss_rel = abs(runs["card"][0] - runs["cpu"][0]) / abs(runs["cpu"][0])
+    out = dict(setting=setting, crop=V3D_GRAD_CROP, clips=V3D_GRAD_CLIPS,
+               eval_card_vs_cpu_rel=eval_rel, loss_card=runs["card"][0],
+               loss_cpu=runs["cpu"][0], loss_float64=loss64,
+               loss_rel=loss_rel, n_grads=len(ref),
+               card_vs_float64=stat["card"], cpu_vs_float64=stat["cpu"],
+               tol=tol, card=card)
+    print("video3d_grad_parity " + json.dumps(out), flush=True)
+    if not loss_rel <= CPU_REL_TOL:
+        raise AssertionError(f"{setting}: loss card {runs['card'][0]} vs "
+                             f"CPU {runs['cpu'][0]}")
+    for q in tol:
+        if not stat["card"][q] <= tol[q]:
+            raise AssertionError(
+                f"{setting}: {q} gradient error against float64: card "
+                f"{stat['card'][q]:.3e}, CPU fp32 {stat['cpu'][q]:.3e}")
+    return out
+
+
+def _trainer_cli(torch, name, main, argv):
+    """A trainer CLI at SLICE16_TRAIN_ARGV as a main path: 2 steps of 8
+    clips launching no kernel, none in validation, its three checkpoint
+    files; each step's ms (the first with cuDNN's plan search apart) and the
+    first step's peak memory."""
+    with LoopWatch(torch) as w:
+        reset_counters()
+        t0 = time.perf_counter()
+        res = main(SLICE16_TRAIN_ARGV + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+    out = w.summary(name, {}, 2, res, wall, launches, clips=8)
+    files = sorted(f for f in os.listdir(res["run_dir"])
+                   if f.endswith(".pth"))
+    if len(files) != 3:
+        raise AssertionError(f"{name}: checkpoint files {files}")
+    return out
+
+
+def video3d_phase(torch, seed, batches, tmp, card):
+    """R(2+1)D-18 (83 classes, T=8, 224^2, bf16) serving the request
+    batches (2 videos x 10 clips a forward) after its card-vs-CPU gate,
+    one scorer call traced;
+    ``r2plus1d_mtmm``: V3D_TRAIN_STEPS ``make_train_step(stage='mtmm')``
+    steps of 8 clips (one parameter group) and the fp32 gradient gate
+    against float64 in both BN settings; SlowOnly-R50:
+    ``cli.train_slowonly --synthetic`` (2 steps of 8 clips) and a served
+    forward after its gate.  Every main path launches no kernel."""
+    from ehgr_tpu_torch.cli import train_slowonly
+    from ehgr_tpu_torch.models.video3d import R2Plus1D18, SlowOnlyR50
+
+    out, paths = {}, {}
+    clips = _clips(torch, batches[0][0])
+    for arch, cls in (("r2plus1d", R2Plus1D18), ("slowonly", SlowOnlyR50)):
+        model = cls(CLASSES, device="cuda",
+                    generator=torch.Generator().manual_seed(seed))
+        set_bn_stats(torch, model, clips)
+        out[f"{arch}_vs_cpu"] = card_vs_cpu(
+            torch, arch, model, _cpu_twin(torch, cls, model,
+                                          num_class=CLASSES), clips)
+        model.dtype = torch.bfloat16
+        served = paths[f"{arch}_serve"] = serve(torch, model, batches, {},
+                                                f"{arch}_serve")
+        print(f"video3d_speed {arch} serve clips/s "
+              f"{served['clips_per_s']:.1f} on {card}", flush=True)
+        out[f"{arch}_serve"] = served
+        out[f"{arch}_profile"] = profile_forward(
+            torch, model, batches[0][0], name=f"{arch}_profile",
+            shapes=True)
+        del model
+    model = R2Plus1D18(CLASSES, with_depth=True, dtype=torch.bfloat16,
+                       device="cuda",
+                       generator=torch.Generator().manual_seed(seed))
+    out["r2plus1d_mtmm_train"], _ = run_steps(
+        torch, "r2plus1d_mtmm_train", model, "mtmm", seed, {},
+        steps=V3D_TRAIN_STEPS, policies=False)
+    paths["r2plus1d_mtmm_train"] = out["r2plus1d_mtmm_train"]
+    del model
+    out["r2plus1d_mtmm_grad"] = [_video3d_grads(torch, seed, s, card)
+                                 for s in ("bn_batch", "bn_running")]
+    out["slowonly_train"] = paths["slowonly_train"] = _trainer_cli(
+        torch, "slowonly_train", train_slowonly.main,
+        ["--run_dir", os.path.join(tmp, "slowonly"), "--model_name",
+         "slowonly"])
+    out["card"] = card
+    return out, paths
+
+
+def videomae_phase(torch, seed, tmp, card):
+    """VideoMAE-Base (ViT-B/16: 768 dim, 12 layers, 12 heads; T=16, 224^2,
+    1568 tokens, 83 classes): the card-vs-CPU gate on one clip, a bf16
+    forward of VIT_CLIPS clips (clips/s) launching no kernel, then
+    ``cli.train_videomae --synthetic --clip_len 16`` (2 steps of 8 clips;
+    the first step's peak memory, set by the fp32 softmax of 12 x 1568^2
+    scores a clip and a layer); the forward traced once."""
+    from ehgr_tpu_torch.cli import train_videomae
+    from ehgr_tpu_torch.models.videomae import VideoMAE
+    from ehgr_tpu_torch.ops.preprocess_device import normalize_clip
+
+    rng = np.random.default_rng(seed + 17)
+    frames = torch.as_tensor(rng.integers(
+        0, 256, (VIT_CLIPS, VIT_T, CROP, CROP, 3), dtype=np.uint8)).cuda()
+    x = normalize_clip(frames)
+    model = VideoMAE(CLASSES, device="cuda",
+                     generator=torch.Generator().manual_seed(seed))
+    out = {"vs_cpu": card_vs_cpu(torch, "videomae", model,
+                                 _cpu_twin(torch, VideoMAE, model,
+                                           num_class=CLASSES), x)}
+    model.dtype = torch.bfloat16
+    with torch.inference_mode():
+        model(x)                                     # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        ms = _time_ms(torch, lambda: model(x), reps=5)
+        launches = _launches()
+        logits = model(x)
+    _no_launches("videomae_forward", launches)
+    if logits.shape != (VIT_CLIPS, CLASSES) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"videomae forward: {logits.shape}")
+    fwd = out["forward"] = dict(clips=VIT_CLIPS, t=VIT_T, ms=ms,
+                                clips_per_s=VIT_CLIPS / ms * 1e3,
+                                launches=launches)
+    print(f"videomae_forward {json.dumps(fwd)} on {card}", flush=True)
+    with torch.inference_mode():
+        out["profile"] = _device_profile(torch, lambda: model(x))
+    print("videomae_profile " + json.dumps(out["profile"]), flush=True)
+    del model, x
+    out["train"] = _trainer_cli(
+        torch, "videomae_train", train_videomae.main,
+        ["--clip_len", str(VIT_T), "--run_dir",
+         os.path.join(tmp, "videomae"), "--model_name", "videomae"])
+    out["card"] = card
+    return out, {"videomae_forward": fwd, "videomae_train": out["train"]}
+
+
+def _midas_keyed(torch, model, seed):
+    """``model``'s weights as an official MiDaS state dict (plus
+    refinenet4's ``resConfUnit1``, which MiDaS holds and never calls)."""
+    from ehgr_tpu_torch.models.dpt import midas_key_map
+
+    sd = {k: v.cpu() for k, v in model.state_dict().items()}
+    out = {k: sd[p] for k, p in midas_key_map(model).items()}
+    g = torch.Generator().manual_seed(seed)
+    for c in ("conv1", "conv2"):
+        for leaf in ("weight", "bias"):
+            ref = sd[f"refinenet4.res2.{c}.{leaf}"]
+            out[f"scratch.refinenet4.resConfUnit1.{c}.{leaf}"] = \
+                torch.randn(ref.shape, generator=g)
+    return out
+
+
+def dpt_phase(torch, seed, tmp, card):
+    """DPT-Large (1024 dim, 24 layers, 577 tokens at 384^2), fp32: the
+    card-vs-CPU gate on one frame (the reference depth checked to be
+    non-degenerate first), a forward of DPT_FRAMES frames (ms a frame)
+    launching no kernel, traced once; then ``midas_predictor`` on a file the phase
+    saves from the model, keyed as MiDaS keys it, over MIDAS_FRAMES
+    synthetic 480x640 frames (ms a frame, each depth in [0, 1], the first
+    against the model's own depth of that frame), and through
+    ``generate_pseudo_depth_tree`` over the same frames as a JPEG tree
+    (ms a frame with the JPEG decode and encode).  The head's last bias is
+    set to 1, so the random model's depth after its final ReLU is mostly
+    nonzero."""
+    from ehgr_tpu_torch.data.pseudo_depth import midas_predictor
+    from ehgr_tpu_torch.models.dpt import DPT, dpt_large
+    from ehgr_tpu_torch.ops.preprocess_device import resize_clip
+
+    rng = np.random.default_rng(seed + 18)
+    frames = torch.as_tensor(rng.integers(
+        0, 256, (DPT_FRAMES, DPT_SIZE, DPT_SIZE, 3), dtype=np.uint8)).cuda()
+    x = (frames.float() / 255.0 - 0.5) / 0.5
+    model = dpt_large(device="cuda",
+                      generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        model.head_conv3.bias.fill_(1.0)
+    def non_degenerate(ref):
+        top = ref[0].abs().max().item()
+        zero = (ref[0] == 0).float().mean().item()
+        if not (top > 0 and zero < 0.5):
+            raise AssertionError(f"dpt: degenerate reference depth (max "
+                                 f"{top}, {zero:.2f} zero)")
+        return dict(ref_zero_share=zero)
+
+    out = {"vs_cpu": card_vs_cpu(torch, "dpt", model,
+                                 _cpu_twin(torch, DPT, model),
+                                 x[:REF_CLIPS], bf16=False,
+                                 check_ref=non_degenerate)}
+    with torch.inference_mode():
+        model(x)                                     # warm-up
+        torch.cuda.synchronize()
+        reset_counters()
+        ms = _time_ms(torch, lambda: model(x), reps=3)
+        launches = _launches()
+        depth = model(x)
+    _no_launches("dpt_forward", launches)
+    if depth.shape != (DPT_FRAMES, DPT_SIZE, DPT_SIZE) or \
+            not torch.isfinite(depth).all():
+        raise AssertionError(f"dpt forward: {depth.shape}")
+    fwd = out["forward"] = dict(frames=DPT_FRAMES, size=DPT_SIZE, ms=ms,
+                                ms_per_frame=ms / DPT_FRAMES,
+                                launches=launches)
+    print(f"dpt_forward {json.dumps(fwd)} on {card}", flush=True)
+    with torch.inference_mode():
+        out["profile"] = _device_profile(torch, lambda: model(x))
+    print("dpt_profile " + json.dumps(out["profile"]), flush=True)
+
+    path = os.path.join(tmp, "dpt_large-midas-2f21e586.pt")
+    torch.save(_midas_keyed(torch, model, seed), path)
+    predict = midas_predictor(path, "cuda")
+    h, w = MIDAS_GEOM
+    pics = rng.integers(0, 256, (MIDAS_FRAMES, h, w, 3), dtype=np.uint8)
+    predict(pics[0])                                 # warm-up
+    reset_counters()
+    t0 = time.perf_counter()
+    maps = [predict(p) for p in pics]
+    secs = time.perf_counter() - t0
+    launches = _launches()
+    _no_launches("midas_predictor", launches)
+    for d in maps:
+        if d.shape != (h, w) or not (d.min() == 0.0 and d.max() == 1.0):
+            raise AssertionError(f"midas_predictor: {d.shape}, "
+                                 f"[{d.min()}, {d.max()}]")
+    s = 384.0 / min(h, w)                  # the predictor's geometry
+    size = tuple(max(32, int(round(n * s / 32)) * 32) for n in (h, w))
+    with torch.inference_mode():
+        p = torch.as_tensor(pics[0]).cuda()[None].float() / 255.0
+        inv = model((resize_clip(p, size) - 0.5) / 0.5)
+        inv = resize_clip(inv[..., None], (h, w))[0, ..., 0]
+        inv = ((inv - inv.min()) / (inv.max() - inv.min())).cpu().numpy()
+    own = float(np.abs(maps[0] - inv).max())
+    if not own <= 1e-4:
+        raise AssertionError(f"midas_predictor vs the model: {own}")
+    # the offline prep's path: a Color/rgb1 JPEG tree -> Depth_Est
+    from PIL import Image
+
+    from ehgr_tpu_torch.data.pseudo_depth import generate_pseudo_depth_tree
+
+    root = os.path.join(tmp, "frames")
+    color = os.path.join(root, "Subject01", "Scene1", "Color", "rgb1")
+    os.makedirs(color)
+    for i, pic in enumerate(pics):
+        Image.fromarray(pic).save(os.path.join(color, f"{i + 1:06d}.jpg"))
+    reset_counters()
+    t0 = time.perf_counter()
+    written = generate_pseudo_depth_tree(root, root, predictor=predict)
+    tree_secs = time.perf_counter() - t0
+    tree_launches = _launches()
+    _no_launches("pseudo_depth_tree", tree_launches)
+    est = os.path.join(root, "Subject01", "Scene1", "Depth_Est",
+                       "depth_est1", "000001.jpg")
+    with Image.open(est) as im:
+        size = im.size
+    if written != MIDAS_FRAMES or size != (w, h):
+        raise AssertionError(f"pseudo-depth tree: {written} frames, "
+                             f"{size}")
+    mid = out["midas"] = dict(frames=MIDAS_FRAMES, geom=list(MIDAS_GEOM),
+                              seconds=secs,
+                              ms_per_frame=secs / MIDAS_FRAMES * 1e3,
+                              vs_model_max_abs=own, launches=launches,
+                              tree_frames=written,
+                              tree_ms_per_frame=tree_secs / written * 1e3,
+                              tree_launches=tree_launches)
+    print(f"midas_predictor {json.dumps(mid)} on {card}", flush=True)
+    out["card"] = card
+    return out, {"dpt_forward": fwd, "midas_predictor": mid}
+
+
+def slice16(torch, seed, batches, phases):
+    """The sixteenth slice's phases (``video3d``, ``videomae``, ``dpt``),
+    each timed into ``phases`` and their seconds printed, under one
+    temporary directory.  Returns their results and their main paths'
+    results by name."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60, check=True).stdout.strip()
+    out, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fn, args in (
+                ("video3d", video3d_phase, (batches, tmp, smi)),
+                ("videomae", videomae_phase, (tmp, smi)),
+                ("dpt", dpt_phase, (tmp, smi))):
+            t0 = time.perf_counter()
+            out[name], p = fn(torch, seed, *args)
+            phases[name] = time.perf_counter() - t0
+            paths.update(p)
+    names = ("video3d", "videomae", "dpt")
+    print("slice16_phase_seconds " + json.dumps(
+        {**{k: phases[k] for k in names},
+         "total": sum(phases[k] for k in names)}), flush=True)
+    return out, paths
+
+
+# ---------------------------------------------------------------------------
 # the thirteenth slice: the serving surfaces (the on-device resize, the AOT
 # artifact with the kernels as custom ops, the cascade, the stream)
 # ---------------------------------------------------------------------------
@@ -3625,17 +4086,45 @@ def int8_test(torch, seed, checkpoint, ego):
     return out
 
 
-def _device_profile(torch, fn, match=()):
+def _conv_kernels(prof, top=12):
+    """The ``top`` costliest convolutions of a profile, grouped by their
+    input and weight shapes: calls, device ms and the device ms of each
+    kernel they ran (cuDNN's layout conversions included)."""
+    def kernels(e):
+        yield from e.kernels
+        for c in e.cpu_children:
+            yield from kernels(c)
+
+    rows = {}
+    for e in prof.events():
+        if e.name != "aten::convolution":
+            continue
+        key = str(e.input_shapes[:2])
+        row = rows.setdefault(key, dict(input=e.input_shapes[0],
+                                        weight=e.input_shapes[1], calls=0,
+                                        ms=0.0, kernels={}))
+        row["calls"] += 1
+        for k in kernels(e):
+            ms = k.duration / 1e3
+            row["ms"] += ms
+            row["kernels"][k.name[:90]] = row["kernels"].get(
+                k.name[:90], 0.0) + ms
+    return sorted(rows.values(), key=lambda r: -r["ms"])[:top]
+
+
+def _device_profile(torch, fn, match=(), shapes=False):
     """Wall time and device time by kernel name of one call of ``fn``
     (torch.profiler), ``fn`` run once before to warm up; with ``match``,
     also every kernel whose name holds one of those words
-    (``matched_ms``)."""
+    (``matched_ms``); with ``shapes``, the shapes recorded and the
+    convolutions' kernels by shape (``convs``; the recording adds host
+    time to ``wall_ms``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=shapes) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -3652,6 +4141,8 @@ def _device_profile(torch, fn, match=()):
     if match:
         out["matched_ms"] = {k: v for k, v in dev.items()
                              if any(w in k for w in match)}
+    if shapes:
+        out["convs"] = _conv_kernels(prof)
     return out
 
 
@@ -4375,6 +4866,9 @@ def main(argv=None) -> int:
     print("slice_phase_seconds " + json.dumps(
         {**{k: phases[k] for k in new_phases},
          "total": sum(phases[k] for k in new_phases)}), flush=True)
+
+    # the last model families: 3-D, VideoMAE, DPT and the MiDaS predictor
+    families, family_paths = slice16(torch, args.seed, batches, phases)
     coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
@@ -4405,7 +4899,8 @@ def main(argv=None) -> int:
              **bb_paths, "rehearsal": reh,
              "sd_actionnet_prologue": sd_an["prologue"],
              "sd_actionnet_vjp": sd_an["vjp"], "gradcam": cam,
-             "case_study": case, "reproduce_smoke": repro}
+             "case_study": case, "reproduce_smoke": repro,
+             **family_paths}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -4429,7 +4924,7 @@ def main(argv=None) -> int:
                       "stream": stream, "backbones": bb,
                       "rehearsal": reh, "sd_actionnet": sd_an,
                       "gradcam": cam, "case_study": case,
-                      "reproduce_smoke": repro,
+                      "reproduce_smoke": repro, **families,
                       "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)

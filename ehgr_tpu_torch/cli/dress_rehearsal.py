@@ -25,8 +25,9 @@ runs stage 0 first, a short easy-task MTMM run that plays the role of the
 reference's ImageNet init.
 
 The flags and the report's keys are those of ``cli/dress_rehearsal.py``,
-plus ``--device`` and the report's ``card`` (name and power limit as
-``nvidia-smi`` gives them, or ``cpu``).  Checkpoints are the port's files,
+plus ``--device``, the report's ``card`` (name and power limit as
+``nvidia-smi`` gives them, or ``cpu``) and its ``sd_epochs`` (the epochs
+stage 2 trains: ``--sd_epochs``, or ``epochs`` when it is 0).  Checkpoints are the port's files,
 ``<run_dir>/<model_name>_<tag>_ckpt.pth``: ``--init``, ``--stage1_ckpt``
 and ``--test_ckpt`` take such a file.  Prints ONE JSON line with losses,
 accuracies and walls; with ``--out`` also writes it to
@@ -139,7 +140,8 @@ def main(argv=None):
               "learnable": learn, "task": args.task if learn else "random",
               "lr": base_lr, "epochs": n_epochs,
               "videos": args.videos, "distractors": args.distractors,
-              "occlude": args.occlude, "card": card_name(args.device)}
+              "occlude": args.occlude, "card": card_name(args.device),
+              "sd_epochs": args.sd_epochs or n_epochs}
 
     max_steps = None if learn else args.steps
 

@@ -10,9 +10,10 @@ the 10-class study splits.
   python -m ehgr_tpu_torch.cli.prepare_data nv --dataset_path <root> \
       --save_path <annot dir>
 
-It runs on the host alone.  ``--midas_weights`` raises: the DPT model is
-not ported yet (``data/pseudo_depth.py``); the default pseudo-depth is the
-labelled gray proxy.
+It runs on the host alone, but for ``--pseudo_depth --midas_weights
+<dpt_large-midas-2f21e586.pt>``, which runs MiDaS DPT-Large on
+``--device`` (default ``cuda``; ``data/pseudo_depth.py``); without
+``--midas_weights`` the pseudo-depth is the labelled gray proxy.
 """
 
 import argparse
@@ -29,8 +30,10 @@ def main(argv=None):
     p.add_argument("--pseudo_depth", action="store_true")
     p.add_argument("--midas_weights", default="",
                    help="dpt_large-midas-2f21e586.pt path -> MiDaS "
-                        "pseudo-depth (needs the DPT model, not ported "
-                        "yet); default is the labeled gray proxy")
+                        "pseudo-depth on --device; default is the labeled "
+                        "gray proxy")
+    p.add_argument("--device", default="cuda",
+                   help="where --midas_weights runs DPT-Large")
     p.add_argument("--make_10cls", action="store_true")
     args = p.parse_args(argv if argv is not None else sys.argv[1:])
 
@@ -44,7 +47,7 @@ def main(argv=None):
             from ehgr_tpu_torch.data.pseudo_depth import (
                 generate_pseudo_depth_tree, midas_predictor)
 
-            pred = midas_predictor(args.midas_weights) \
+            pred = midas_predictor(args.midas_weights, args.device) \
                 if args.midas_weights else None
             n = generate_pseudo_depth_tree(args.frame_path, args.frame_path,
                                            predictor=pred)

@@ -4,7 +4,7 @@
 (``ehgr_tpu/configs.py``), so the port imports nothing of that package.
 
 The mesh settings (``ParallelConfig``) are not ported: the port runs on one
-card (ROADMAP: queue 1, item 6, DDP).
+card until DDP is ported (ROADMAP §1, the DDP item).
 """
 
 from __future__ import annotations
@@ -50,7 +50,8 @@ class ModelConfig:
     """Model family + backbone settings."""
 
     arch: str = "tsn"                    # tsn | tsn_mtmm | tsn_sd | tsn_mtmm_sd |
-                                         # tsn_middle{1,2,3} | r2plus1d | slowonly
+                                         # tsn_middle{1,2,3} | r2plus1d |
+                                         # r2plus1d_mtmm | slowonly | videomae
     base_model: str = "resnet50"
     num_segments: int = 8                # T at model level (== clip_len)
     num_classes: int = 83
@@ -146,7 +147,14 @@ class Config:
         if self.model.temporal_module not in ("action", "tsm", "none"):
             raise ValueError(
                 f"unknown temporal module {self.model.temporal_module!r}")
+        if self.model.arch not in ARCHS:
+            raise ValueError(f"unknown arch {self.model.arch!r}")
         return self
+
+
+ARCHS = ("tsn", "tsn_mtmm", "tsn_sd", "tsn_mtmm_sd", "tsn_middle1",
+         "tsn_middle2", "tsn_middle3", "r2plus1d", "r2plus1d_mtmm",
+         "slowonly", "videomae")
 
 
 def _ego_base(**model_kw) -> Config:
@@ -190,9 +198,8 @@ def config_from_args(argv: Sequence[str],
                      default_preset: str = "ego_baseline") -> Config:
     """The CLI flags of ``ehgr_tpu.configs.config_from_args`` (the
     reference's flag names) over a preset, giving the same value for every
-    field of this ``Config``.  A flag of something the port does not have
-    yet, set away from its default, raises ``NotImplementedError`` naming
-    its ROADMAP item."""
+    field of this ``Config`` (the JAX ``ParallelConfig`` has no
+    counterpart, nor flags)."""
     import argparse
 
     p = argparse.ArgumentParser()
@@ -237,14 +244,10 @@ def config_from_args(argv: Sequence[str],
     p.add_argument("--synthetic_videos", type=int, default=None)
     p.add_argument("--vit", type=int, nargs=3, default=None,
                    metavar=("DIM", "DEPTH", "HEADS"),
-                   help="videomae encoder size (not ported: ROADMAP queue "
-                        "1, item 6)")
+                   help="videomae encoder size")
     p.add_argument("--accum_steps", type=int, default=None,
                    help="gradient accumulation: microbatches per step")
     args = p.parse_args(argv)
-    if args.vit is not None:
-        raise NotImplementedError(
-            "--vit: VideoMAE is not ported yet (ROADMAP: queue 1, item 6)")
 
     cfg = get_preset(args.preset)
     d, m, o, r = cfg.data, cfg.model, cfg.optim, cfg.run
@@ -267,7 +270,8 @@ def config_from_args(argv: Sequence[str],
             num_segments=args.clip_len, action_fused=args.action_fused,
             quantize=args.quantize, num_classes=args.num_classes,
             action_stages=(tuple(args.action_stages)
-                           if args.action_stages else None))
+                           if args.action_stages else None),
+            vit=tuple(args.vit) if args.vit else None)
     o = upd(o, lr=args.lr, weight_decay=args.wd, epochs=args.epochs,
             lr_steps=tuple(args.lr_steps) if args.lr_steps else None,
             ema_decay=args.ema_decay, accum_steps=args.accum_steps)

@@ -9,9 +9,9 @@ tree.
 [H,W]`` as ``predictor``; the built-in default writes luminance-based
 placeholders, so the whole ``depth_est`` pipeline (annotations -> MTMM
 ``rgb_depthest`` training) runs without external weights.  The real
-predictor, ``midas_predictor``, needs the DPT model, which the port does
-not have yet.  Pillow is imported inside the functions that read and write
-images.
+predictor, ``midas_predictor``, runs MiDaS DPT-Large
+(``ehgr_tpu_torch.models.dpt``) on the card from a weights file.  Pillow is
+imported inside the functions that read and write images.
 """
 
 from __future__ import annotations
@@ -66,21 +66,49 @@ def generate_pseudo_depth_tree(
     return n
 
 
-def midas_predictor(weights_path: Optional[str] = None):
+def midas_predictor(weights_path: Optional[str] = None, device=None):
     """Real MiDaS DPT_Large as a predictor (``uint8 [H,W,3] -> float
     [H,W]`` in [0,1]), for ``generate_pseudo_depth_tree``.
 
     ``weights_path`` must point at the official checkpoint
-    (``dpt_large-midas-2f21e586.pt``), which the repository does not hold.
-    Without it this raises the JAX package's error.  With it, it raises
-    too: the DPT model (``ehgr_tpu/models/dpt.py``) is not ported yet."""
+    (``dpt_large-midas-2f21e586.pt``), which the repository does not hold;
+    without it this raises the JAX package's error.  The model is built on
+    ``device`` (default CUDA) in fp32 and loaded with
+    ``convert_midas_state_dict``.  Each frame is resized to the nearest
+    multiple-of-32 geometry at min-side 384 (MiDaS ``dpt_transform``),
+    normalized as ``(x/255 - 0.5)/0.5``; the inverse-depth map is resized
+    back and min-max normalized per frame, as the JAX predictor does."""
     if weights_path is None or not os.path.isfile(weights_path):
         raise RuntimeError(
             "MiDaS DPT_Large weights are not bundled (no network egress). "
             "Download dpt_large-midas-2f21e586.pt elsewhere and pass "
             "weights_path=, or provide generate_pseudo_depth_tree(..., "
             "predictor=<your uint8[H,W,3] -> float[H,W] model>).")
-    raise NotImplementedError(
-        "MiDaS DPT_Large needs the DPT model, which ehgr_tpu_torch does not "
-        "have yet; pass generate_pseudo_depth_tree(..., predictor=<your "
-        "uint8[H,W,3] -> float[H,W] model>) instead")
+    import torch
+
+    from ehgr_tpu_torch.device import resolve_device
+    from ehgr_tpu_torch.models import dpt
+    from ehgr_tpu_torch.ops.preprocess_device import resize_clip
+
+    sd = torch.load(weights_path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    dev = resolve_device(device)
+    model = dpt.dpt_large(device=dev)
+    dpt.convert_midas_state_dict(sd, model)
+
+    @torch.inference_mode()
+    def predict(frame: np.ndarray) -> np.ndarray:
+        h, w = frame.shape[:2]
+        s = 384.0 / min(h, w)
+        th = max(32, int(round(h * s / 32)) * 32)
+        tw = max(32, int(round(w * s / 32)) * 32)
+        x = torch.as_tensor(np.asarray(frame)).to(dev)[None] \
+            .to(torch.float32) / 255.0
+        x = (resize_clip(x, (th, tw)) - 0.5) / 0.5
+        inv = resize_clip(model(x)[..., None], (h, w))[0, ..., 0]
+        lo, hi = inv.min(), inv.max()
+        out = (inv - lo) / (hi - lo) if hi > lo else torch.zeros_like(inv)
+        return out.cpu().numpy()
+
+    return predict

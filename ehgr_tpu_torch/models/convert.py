@@ -1,6 +1,7 @@
 """JAX variable tree -> the port's ``state_dict`` (counterpart of the export
 direction of ``ehgr_tpu/models/torch_import.py``, for the ResNet / TSN /
-ACTION / decoder / SD-exit / text-head subset the port has).
+ACTION / decoder / SD-exit / text-head subset the port has, and for the
+3-D models, VideoMAE and DPT).
 
 Input is the flax variable tree flattened to ``{path-tuple: array}``, as
 ``flax.traverse_util.flatten_dict`` gives it (first element the collection:
@@ -14,11 +15,15 @@ rank:
   conv3d kernel [kt,kh,kw,I,O]    -> [O,I,kt,kh,kw]
   conv1d kernel [k,I,O]           -> [O,I,k]
   conv-transpose kernel [kh,kw,O,I] (``transpose_kernel``) -> [I,O,kh,kw]
+                                  (also rank 5: R(2+1)D's ``dec_ct{k}``)
+  DPT's ``up1`` / ``up2`` [kh,kw,I,O] (no ``transpose_kernel``)
+                                  -> [I,O,kh,kw] flipped in kh and kw
+  ``cls_token``, ``pos_embed``    -> as they are
   dense  kernel [I,O]             -> [O,I]; [O,I,1,1] at the ACTION 1x1 sites
   shift_w [3,C]                   -> action_shift.weight [C,1,3]
 
 Name rules: ``layer{i}_{j}`` -> ``layer{i}.{j}``; ``downsample_conv/bn`` ->
-``downsample.0/1``; ACTION children ``pK_*`` -> ``action_pK_*``; decoder
+``downsample.0/1``; DPT's ``layer{k}_rn`` keeps its name; ACTION children ``pK_*`` -> ``action_pK_*``; decoder
 ``global_decoder/{conv0..4,bn0..3}`` -> ``global_decoder.{nn.Sequential
 index}``; ``scala{k}/sep{i}/{dw1,pw1,bn1,dw2,pw2,bn2}`` ->
 ``scala{k}.{i}.op.{0,1,2,4,5,6}``; ``middle_fc{k}`` keeps its name; BN
@@ -87,6 +92,13 @@ _BNI_BRANCH = {"b1x1": "1x1", "b3x3_reduce": "3x3_reduce", "b3x3": "3x3",
 _BNI_STEM = {"conv1": "conv1_7x7_s2", "conv2_reduce": "conv2_3x3_reduce",
              "conv2": "conv2_3x3"}
 _BYOT_SEP = re.compile(r"scala\d+_sep\d+")
+# DPT's top-level leaves kept in their flax layout: its class token and
+# position table
+_RAW = ("cls_token", "pos_embed")
+# DPT's top-level ``ConvTranspose(transpose_kernel=False)`` kernels
+# [kh,kw,I,O]: torch's ``ConvTranspose2d`` computes the same function from
+# [I,O,kh,kw] flipped in space
+_FLAX_TCONV = ("up1.weight", "up2.weight")
 
 
 def _decoder_index(p: str) -> str:
@@ -101,11 +113,13 @@ def _decoder_index(p: str) -> str:
 def _caffe_flat(parts):
     """BN-Inception's layers as one part each, its Caffe-flat names:
     ``inception_3a/b1x1/conv`` -> ``inception_3a_1x1``, ``conv1/bn`` ->
-    ``conv1_7x7_s2_bn``; other parts pass."""
+    ``conv1_7x7_s2_bn`` (not inside a block ``layer{i}_{j}``, where
+    R(2+1)D's ``conv1/bn`` is its own); other parts pass."""
     out = []
     for p in parts:
         suffix = "_bn" if p == "bn" else ""
-        if p in ("conv", "bn") and out and out[-1] in _BNI_STEM:
+        if p in ("conv", "bn") and out and out[-1] in _BNI_STEM and \
+                not (len(out) > 1 and out[-2].startswith("layer")):
             out[-1] = _BNI_STEM[out[-1]] + suffix
         elif p in ("conv", "bn") and len(out) > 1 and \
                 out[-1] in _BNI_BRANCH and out[-2].startswith("inception_"):
@@ -131,6 +145,8 @@ def torch_key(path: Tuple[str, ...]) -> str:
             out += p.split("_")
         elif p == "sep" or _BYOT_SEP.fullmatch(p):
             out += [p, "op"]
+        elif p.startswith("layer") and p.endswith("_rn"):
+            out.append(p)                         # DPT's layer{k}_rn
         elif p.startswith("layer") and "_" in p:
             stage, block = p[5:].split("_")
             out += [f"layer{stage}", block]
@@ -161,6 +177,10 @@ def torch_key(path: Tuple[str, ...]) -> str:
 def convert_tensor(t: np.ndarray, key: str) -> np.ndarray:
     """Transpose a flax leaf to torch layout (see the module docstring)."""
     t = np.array(t, np.float32)        # a writable copy for torch
+    if key in _RAW:
+        return np.ascontiguousarray(t)
+    if t.ndim == 4 and key in _FLAX_TCONV:
+        return np.ascontiguousarray(t.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
     if key.endswith("action_shift.weight"):
         return np.ascontiguousarray(t.T[:, None, :])
     if t.ndim == 2 and key.endswith(_1X1_DENSE):

@@ -29,6 +29,22 @@ class ConvTranspose2d(nn.ConvTranspose2d):
             self.dilation)
 
 
+class Conv3d(nn.Conv3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._conv_forward(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype))
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose3d(
+            x, self.weight.to(x.dtype),
+            None if self.bias is None else self.bias.to(x.dtype),
+            self.stride, self.padding, self.output_padding, self.groups,
+            self.dilation)
+
+
 class Conv1d(nn.Conv1d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv_forward(
@@ -42,6 +58,29 @@ class Linear(nn.Linear):
                         None if self.bias is None else self.bias.to(x.dtype))
 
 
+class LayerNorm(nn.LayerNorm):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x, self.normalized_shape,
+                            self.weight.to(x.dtype), self.bias.to(x.dtype),
+                            self.eps)
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator) -> torch.Tensor:
+    """Inverted dropout of ``x`` in training, its mask drawn from
+    ``generator`` (a ``torch.Generator`` on ``x``'s device); ``x`` as it is
+    at eval or at rate 0."""
+    if not training or rate <= 0:
+        return x
+    if generator is None:
+        raise ValueError("training with dropout needs generator=, a "
+                         "torch.Generator")
+    keep = 1.0 - rate
+    mask = torch.empty(x.shape, device=x.device).bernoulli_(
+        keep, generator=generator)
+    return x * (mask / keep).to(x.dtype)
+
+
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator) -> None:
     """flax-style init of every conv/linear weight: normal with variance
@@ -52,7 +91,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> None:
     seed gives the same weights on every device."""
     for m in model.modules():
         if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d,
-                          nn.ConvTranspose2d, nn.Linear)):
+                          nn.ConvTranspose2d, nn.ConvTranspose3d,
+                          nn.Linear)):
             w = m.weight
             std = w[0].numel() ** -0.5
             w.copy_(torch.empty(w.shape).normal_(0.0, std,

@@ -52,3 +52,11 @@ class BatchNorm(nn.BatchNorm2d):
         b = self.bias - self.running_mean * a
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * a.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+
+
+class BatchNorm3d(BatchNorm):
+    """``BatchNorm`` over ``[N, C, T, H, W]`` (the 3-D models)."""
+
+    def _check_input_dim(self, x: torch.Tensor) -> None:
+        if x.dim() != 5:
+            raise ValueError(f"expected 5D input (got {x.dim()}D input)")

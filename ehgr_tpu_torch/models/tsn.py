@@ -25,7 +25,7 @@ from ehgr_tpu_torch.device import DeviceLike, resolve_device
 from ehgr_tpu_torch.models.backbones import get_backbone, supports_taps
 from ehgr_tpu_torch.models.decoders import (GlobalDepthDecoder, Scala,
                                            TextEncoder, TransposedDecoder)
-from ehgr_tpu_torch.models.layers import Linear, init_params
+from ehgr_tpu_torch.models.layers import Linear, dropout, init_params
 from ehgr_tpu_torch.ops.consensus import consensus
 
 # width of the pooled feature of each backbone (its names and aliases)
@@ -183,14 +183,7 @@ class TSN(nn.Module):
             return mids[0], taps
         feat = taps["pool"]                             # [NT, 2048]
         final_fea = feat
-        if self.training and self.dropout > 0:
-            if generator is None:
-                raise ValueError("training with dropout needs generator=, "
-                                 "a torch.Generator")
-            keep = 1.0 - self.dropout
-            mask = torch.empty(feat.shape, device=feat.device).bernoulli_(
-                keep, generator=generator)
-            feat = feat * (mask / keep).to(feat.dtype)
+        feat = dropout(feat, self.dropout, self.training, generator)
         logits = self._head(self.new_fc, feat)
         if self.with_sd:
             extras = tuple(

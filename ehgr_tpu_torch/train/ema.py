@@ -12,8 +12,11 @@ import torch
 def ema_update(ema: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor],
                decay: float) -> None:
     """Blend ``new`` into ``ema`` in place (no second copy of the model),
-    as multi-tensor ops."""
+    as multi-tensor ops.  Empty dicts (a model without BN, such as
+    VideoMAE, has no running statistics) are left alone."""
     keys = list(ema)
+    if not keys:
+        return
     targets = [ema[k] for k in keys]
     torch._foreach_mul_(targets, decay)
     torch._foreach_add_(targets, [new[k] for k in keys], alpha=1.0 - decay)

@@ -447,14 +447,14 @@ class TestConfigs:
                                       ["--quantize", "dynamic"],
                                       ["--vit", "8", "1", "2"]])
     def test_flags_not_ported_raise(self, argv):
-        """``--vit`` (VideoMAE) is not ported and raises; ``--quantize``
-        is: its config is the JAX parser's, every field."""
-        if argv[0] == "--vit":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                pc.config_from_args(argv)
-            return
+        """The flags that once raised in the port, ``--quantize`` and
+        ``--vit`` (VideoMAE's encoder size), are ported: each config is
+        the JAX parser's, every field."""
         got, want = pc.config_from_args(argv), jc.config_from_args(argv)
-        assert got.model.quantize == want.model.quantize == argv[1]
+        if argv[0] == "--vit":
+            assert got.model.vit == want.model.vit == (8, 1, 2)
+        else:
+            assert got.model.quantize == want.model.quantize == argv[1]
         for part in ("data", "model", "optim", "loss", "run"):
             g = dataclasses.asdict(getattr(got, part))
             w = dataclasses.asdict(getattr(want, part))

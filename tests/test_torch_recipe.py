@@ -209,8 +209,12 @@ class TestPseudoDepth:
             pseudo_depth.midas_predictor(str(tmp_path / "missing.pt"))
         weights = tmp_path / "dpt_large-midas-2f21e586.pt"
         weights.write_bytes(b"")
-        with pytest.raises(NotImplementedError, match="DPT"):
-            pseudo_depth.midas_predictor(str(weights))
+        # a file that is there is read: an empty one fails in torch.load,
+        # in both packages
+        with pytest.raises(EOFError):
+            j_pseudo.midas_predictor(str(weights))
+        with pytest.raises(EOFError):
+            pseudo_depth.midas_predictor(str(weights), device="cpu")
 
 
 # --- prepare_data ----------------------------------------------------------
@@ -371,7 +375,8 @@ def _stub_jax_rehearsal(monkeypatch):
 class TestDressRehearsal:
     def test_tiny_plain_run(self, tmp_path, monkeypatch):
         """The port's rehearsal on the CPU at tiny geometry: its report
-        file holds JAX's keys in JAX's order, then ``card``."""
+        file holds JAX's keys in JAX's order, with ``card`` and
+        ``sd_epochs`` after the settings."""
         _stub_jax_rehearsal(monkeypatch)
         want = j_rehearsal.main(TINY_REHEARSAL + ["--out",
                                                   str(tmp_path / "j")])
@@ -381,8 +386,10 @@ class TestDressRehearsal:
                 "--device", "cpu", "--out", str(out)])
         with open(out / "rehearsal_report.json") as f:
             assert json.load(f) == got
-        assert list(got) == list(want)[:11] + ["card"] + list(want)[11:]
+        assert list(got) == list(want)[:11] + ["card", "sd_epochs"] + \
+            list(want)[11:]
         assert got["card"] == "cpu" and got["ok"] is True
+        assert got["sd_epochs"] == got["epochs"]
         assert math.isfinite(got["mtmm_loss"]) and \
             math.isfinite(got["sd_loss"])
         for k in ("batch", "clip_len", "crop", "classes", "learnable",
