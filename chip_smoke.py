@@ -198,6 +198,19 @@ Phases; any miss raises and the run exits nonzero:
    the model over four 480x640 frames (against the model's own depth) and
    ``generate_pseudo_depth_tree`` over them as JPEGs.
 
+19. the mesh (``parallel/mesh.py``, ``mesh``): TSN + ACTION ResNet-50 at
+   full width (T=8, 224^2, 8 clips a global batch), ranks launched by
+   ``run_ranks``, each with its own launch counts: (a) data=2, model=1,
+   two ranks sharing the card over gloo, 83 classes: one fp32 ``mtmm_sd``
+   step's all-reduced gradients against a float64 one-process run by the
+   rule of the fp32 gates above, its BN running statistics and loss
+   against the one-process step's, bf16 steps timed beside one process;
+   (b) data=1, model=2 at 16 classes (the heads shard): the same gate, the
+   gathered checkpoint restored in one process bitwise, the sharded
+   scorer ('mega') and the ``tsn_middle2`` deploy ('prologue') against the
+   fp32 plain model by the bf16 logit rule; (c) NCCL, one rank (two where
+   the machine has two cards).
+
 Prints the kernel table as one JSON line, the card's name and power limit,
 and as the last line ``{"ok": true, "device": {...}}``.  It needs one card;
 without CUDA it exits nonzero before doing anything.
@@ -1027,10 +1040,10 @@ def make_train_batches(seed, count):
 
 
 def _train_model(torch, seed, mode, dtype, dropout, arch="tsn_mtmm",
-                 temporal="action", base_model="resnet50"):
+                 temporal="action", base_model="resnet50", classes=CLASSES):
     from ehgr_tpu_torch.models.tsn import variant
 
-    return variant(arch, num_class=CLASSES, num_segments=T,
+    return variant(arch, num_class=classes, num_segments=T,
                    base_model=base_model, temporal=temporal,
                    action_fused=mode, partial_bn=False,
                    dropout=dropout, dtype=dtype, device="cuda",
@@ -1183,7 +1196,7 @@ def check_sites(torch, gen):
 
 
 def _parity_grads(torch, seed, mode, dtype, batch, state, arch="tsn_mtmm",
-                  stage="mtmm", base_model="resnet50"):
+                  stage="mtmm", base_model="resnet50", classes=CLASSES):
     """Loss and gradients of one fp32 (or float64) forward/backward of the
     ``stage`` loss; ``state``: BN statistics to load, every BN then
     frozen."""
@@ -1194,7 +1207,7 @@ def _parity_grads(torch, seed, mode, dtype, batch, state, arch="tsn_mtmm",
     from ehgr_tpu_torch.train.steps import make_loss_fn
 
     model = _train_model(torch, seed, mode, torch.float32, 0.0, arch,
-                         base_model=base_model)
+                         base_model=base_model, classes=classes)
     if state is not None:
         model.load_state_dict(state)
         for m in model.modules():
@@ -3167,6 +3180,518 @@ def slice16(torch, seed, batches, phases):
 
 
 # ---------------------------------------------------------------------------
+# the seventeenth slice: the mesh over torch.distributed (data parallelism
+# with global BN statistics, tensor-parallel heads), its ranks on this card
+# ---------------------------------------------------------------------------
+
+# the TP cell's class count divides the model axis, so the heads shard
+# (dryrun_multichip's 16); the DP cell runs the recipe's 83
+MESH_TP_CLASSES = 16
+# each rank's clips in the DP cell (TRAIN_CLIPS over data=2): the kernels
+# are checked at this count before the ranks run
+MESH_RANK_CLIPS = TRAIN_CLIPS // 2
+# BN running statistics after the mesh's fp32 step against the one-process
+# step's: per statistic, max |diff| / max |one-process|
+MESH_STAT_TOL = 1e-5
+# each collective's timeout and the whole run's limit (s)
+MESH_GROUP_S, MESH_JOIN_S = 300.0, 900.0
+# bf16 steps timed after a warm-up, on the ranks and in one process
+MESH_STEPS = 3
+# launches of one fp32 'vjp' step of tsn_mtmm_sd (fp32 takes the sweep
+# routes): the four kernels 16 times each
+MESH_F32_STEP = {"action_stats": 16, "action_apply": 16,
+                 "learnable_shift_fwd": 16, "learnable_shift_bwd": 16}
+# launches of one tsn_middle2 forward in 'prologue' (stages 1-2: 7 sites)
+MIDDLE2_FORWARD = {"action_prologue": 7, "action_prologue_window": 7}
+
+
+def _mesh_batch(seed, classes):
+    """The train phase's first batch of TRAIN_CLIPS clips, labels under
+    ``classes``."""
+    b = make_train_batches(seed, 1)[0]
+    return dict(b, label=b["label"] % classes)
+
+
+def _mesh_step(torch, mesh, seed, classes, tp, dtype):
+    """``make_train_step(stage='mtmm_sd')`` on the full-width
+    ``tsn_mtmm_sd`` ('vjp', every BN on batch statistics; dropout 0 in
+    fp32 for the gate, 0.5 in bf16 as the train phase) from ``seed``, on
+    ``mesh`` (replicated from rank 0, heads sharded with ``tp``) or in one
+    process (``mesh`` None): (model, optimizer, state, step)."""
+    from ehgr_tpu_torch.configs import LossConfig, OptimConfig
+    from ehgr_tpu_torch.ops.preprocess_device import (IMAGENET_MEAN,
+                                                      IMAGENET_STD)
+    from ehgr_tpu_torch.parallel.mesh import replicated, shard_model
+    from ehgr_tpu_torch.train.optim import build_optimizer
+    from ehgr_tpu_torch.train.steps import (create_train_state,
+                                            make_train_step)
+
+    model = _train_model(torch, seed, "vjp", dtype,
+                         0.0 if dtype == torch.float32 else 0.5,
+                         "tsn_mtmm_sd", classes=classes)
+    if mesh is not None:
+        replicated(mesh, model.state_dict().values())
+        shard_model(model, mesh, tp)
+    opt, _ = build_optimizer(model, OptimConfig(lr=0.00125,
+                                                weight_decay=1e-5),
+                             partial_bn=False)
+    state = create_train_state(model, opt)
+    step = make_train_step(model, opt, stage="mtmm_sd",
+                           loss_cfg=LossConfig(depth_size=DEPTH_SIZE),
+                           ema_decay=0.9999, mean=IMAGENET_MEAN,
+                           std=IMAGENET_STD, mesh=mesh)
+    return model, opt, state, step
+
+
+def _mesh_grad_step(torch, mesh, seed, classes, tp, batch):
+    """One fp32 step: its loss, launches, the gradients it applied (on a
+    mesh: SUMmed over the data group), the BN running statistics after it,
+    and the state."""
+    model, opt, state, step = _mesh_step(torch, mesh, seed, classes, tp,
+                                         torch.float32)
+    reset_counters()
+    _, m = step(state, batch, torch.Generator(device="cuda").manual_seed(
+        seed))
+    loss = float(m["loss"])
+    torch.cuda.synchronize()
+    return dict(loss=loss, launches=_launches(), opt=opt, state=state,
+                grads={k: p.grad.detach() for k, p in
+                       model.named_parameters() if p.grad is not None})
+
+
+def _collective_time(torch, fn):
+    """One call of ``fn`` with every SUM of ``parallel/collectives.py`` (the
+    BN moments, the gradients, the metrics) timed on the host, the card
+    synchronized just before and just after each: the call's ms, the ms
+    inside those SUMs, their count and their bytes.  The synchronizations
+    serialize what the call would overlap, so the call's ms is beside the
+    untimed steps' for comparison."""
+    from ehgr_tpu_torch.parallel import collectives
+
+    plain = collectives._sum_
+    acc = dict(ms=0.0, calls=0, bytes=0)
+
+    def timed(t, group):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = plain(t, group)
+        torch.cuda.synchronize()
+        acc["ms"] += (time.perf_counter() - t0) * 1e3
+        acc["calls"] += 1
+        acc["bytes"] += t.numel() * t.element_size()
+        return r
+
+    collectives._sum_ = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        collectives._sum_ = plain
+    return dict(step_ms=wall, collective_ms=acc["ms"],
+                collective_share=acc["ms"] / wall, calls=acc["calls"],
+                bytes=acc["bytes"])
+
+
+def _mesh_bf16_steps(torch, mesh, seed, classes, tp, batch):
+    """A bf16 warm-up step, then MESH_STEPS timed, each step's launches;
+    on a mesh, then one step with its collectives timed
+    (``_collective_time``)."""
+    _, _, state, step = _mesh_step(torch, mesh, seed, classes, tp,
+                                   torch.bfloat16)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    t0 = time.perf_counter()
+    step(state, batch, gen)
+    torch.cuda.synchronize()
+    first = (time.perf_counter() - t0) * 1e3
+    ms, per = [], []
+    for _ in range(MESH_STEPS):
+        reset_counters()
+        t0 = time.perf_counter()
+        _, m = step(state, batch, gen)
+        loss = float(m["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        per.append(_launches())
+        if not math.isfinite(loss):
+            raise AssertionError(f"bf16 mesh step loss {loss}")
+    out = dict(first_step_ms=first, ms_per_step=ms,
+               mean_ms_per_step=sum(ms) / len(ms), launches=per[0],
+               same_launches_each_step=all(p == per[0] for p in per))
+    if mesh is not None:
+        out["collectives"] = _collective_time(
+            torch, lambda: step(state, batch, gen))
+    return out
+
+
+def _sha1(t):
+    import hashlib
+
+    return hashlib.sha1(t.detach().cpu().numpy().tobytes()).hexdigest()
+
+
+def _state_trees(state):
+    return {"params": state.params, "batch_stats": state.batch_stats,
+            "ema_params": state.ema_params,
+            "ema_batch_stats": state.ema_batch_stats,
+            "momentum": state.opt_state.momentum}
+
+
+def _mesh_scorer(torch, mesh, arch, classes, tp, path, mode, frames):
+    """``make_sharded_score_fn`` (bf16) of the ``arch`` model saved at
+    ``path``, after a warm-up call: the probabilities of ``frames`` and
+    that call's launches."""
+    from ehgr_tpu_torch.eval.inference import make_sharded_score_fn
+    from ehgr_tpu_torch.models.tsn import variant
+
+    model = variant(arch, num_class=classes, num_segments=T,
+                    action_fused=mode, device="cuda")
+    model.load_state_dict(torch.load(path, map_location="cuda",
+                                     weights_only=True))
+    model.dtype = torch.bfloat16
+    score = make_sharded_score_fn(model, mesh, model_parallel=tp,
+                                  crop_size=CROP, dtype_name="bfloat16")
+    score(frames)
+    torch.cuda.synchronize()
+    reset_counters()
+    probs = score(frames)
+    torch.cuda.synchronize()
+    return dict(probs=probs, launches=_launches())
+
+
+def mesh_rank(mesh, cell, seed, classes, tp, batch, jobs, files=None,
+              frames=None):
+    """One rank of the mesh phase (``run_ranks`` imports it from this
+    file): ``jobs`` in order, each with its launches counted apart --
+    ``grad`` (one fp32 step; rank 0 returns its gradients and BN
+    statistics, the other model ranks of data index 0 their head shards'
+    gradients), ``save`` (the state after it gathered by
+    ``state_payload`` and written by rank 0 to ``files['ckpt']``; each
+    rank of data index 0 returns its live state, replicated tensors as
+    SHA-1s, head shards as they are), ``bf16`` (timed bf16 steps),
+    ``score`` / ``middle2`` (the sharded scorer of ``files['serve']`` in
+    'mega' / of ``files['middle2']`` in 'prologue' over ``frames``),
+    ``collectives`` (an all_reduce and a broadcast of CUDA tensors over the
+    world).  Prints its launches; returns the window kernels' sizes it
+    launched."""
+    import torch
+    import torch.distributed as dist
+    from ehgr_tpu_torch.ops.kernels import action_fused as fused
+    from ehgr_tpu_torch.ops.kernels import action_mega as mega
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record_window_launches(mega, fused)
+    lead = mesh.data_index == 0
+    out = {"rank": mesh.rank, "device": str(mesh.device)}
+    launches = {}
+    for job in jobs:
+        if job == "grad":
+            r = _mesh_grad_step(torch, mesh, seed, classes, tp, batch)
+            shards = r["state"].head_shards
+            out["grad"] = dict(loss=r["loss"], grads={
+                k: g for k, g in r["grads"].items()
+                if mesh.rank == 0 or (lead and k in shards)})
+            if mesh.rank == 0:
+                out["grad"]["stats"] = dict(r["state"].batch_stats)
+            launches[job] = r["launches"]
+            if "save" not in jobs:
+                r = None
+        elif job == "save":
+            from ehgr_tpu_torch.train.checkpoints import state_payload
+
+            payload = state_payload(r["state"], r["opt"])
+            if mesh.rank == 0:
+                torch.save(payload, files["ckpt"])
+            if lead:
+                out["live"] = {name: {
+                    k: v if k in shards else _sha1(v) for k, v in t.items()
+                    if mesh.rank == 0 or k in shards}
+                    for name, t in _state_trees(r["state"]).items()}
+                out["head_shards"] = dict(shards)
+            payload = r = None
+        elif job == "bf16":
+            out[job] = _mesh_bf16_steps(torch, mesh, seed, classes, tp,
+                                        batch)
+            launches[job] = out[job]["launches"]
+        elif job in ("score", "middle2"):
+            arch, mode = ("tsn", "mega") if job == "score" else \
+                ("tsn_middle2", "prologue")
+            out[job] = _mesh_scorer(torch, mesh, arch, classes, tp,
+                                    files[job], mode, frames)
+            launches[job] = out[job]["launches"]
+        elif job == "collectives":
+            world = dist.get_world_size()
+            t = torch.full((4,), float(mesh.rank + 1), device="cuda")
+            dist.all_reduce(t)
+            b = torch.arange(4.0, device="cuda") * (mesh.rank == 0)
+            dist.broadcast(b, 0)
+            out[job] = dict(
+                backend=dist.get_backend(),
+                all_reduce=t.tolist() == [world * (world + 1) / 2] * 4,
+                broadcast=b.tolist() == [0.0, 1.0, 2.0, 3.0])
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    out["window"] = sorted(WINDOW_LAUNCHES["main"] | WINDOW_LAUNCHES["now"])
+    print(f"mesh_rank {cell} rank {mesh.rank} (data {mesh.data_index}, "
+          f"model {mesh.model_index}) launches " + json.dumps(launches),
+          flush=True)
+    return out
+
+
+def _np_rel(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def _mesh_grad_gate(name, grads, ref, plain):
+    """train_parity's rule on the mesh's fp32 gradients: against the
+    one-process float64 run of the plain model, the one-process fp32 plain
+    run the floor; BN_FED_BIASES held within ZERO_GRAD_REL of their
+    weights' largest gradient."""
+    zero = [k for k in BN_FED_BIASES if k in ref]
+    zero_rel = {k: float(np.abs(grads[k]).max() / np.abs(
+        grads[k[:-len("bias")] + "weight"]).max()) for k in zero}
+    errs = {k: _np_rel(grads[k], ref[k]) for k in ref if k not in zero}
+    floor = {k: _np_rel(plain[k], ref[k]) for k in ref if k not in zero}
+    stat, fstat = _grad_stats(errs), _grad_stats(floor)
+    tol = {q: x * fstat[q] + GRAD_TOL
+           for q, x in (("median", GRAD_X), ("p95", GRAD_X),
+                        ("worst", WORST_X))}
+    r = dict(n_grads=len(ref), mesh_vs_float64=stat,
+             plain_vs_float64=fstat, tol=tol, zero_grad_rel=zero_rel)
+    if any(v > ZERO_GRAD_REL for v in zero_rel.values()):
+        raise AssertionError(f"{name}: gradient of a BN-fed bias {zero_rel}")
+    for q in tol:
+        if not stat[q] <= tol[q]:
+            raise AssertionError(
+                f"{name}: {q} gradient error against float64: mesh "
+                f"{stat[q]:.3e}, plain {fstat[q]:.3e}")
+    return r
+
+
+def _check_rank_launches(name, outs, want):
+    """Every rank's launches of each job equal ``want[job]`` (kernel ->
+    count, the others 0): the four kernels of the train step 16 times each
+    on every rank of a training job."""
+    for o in outs:
+        for job, got in o["launches"].items():
+            w = {k: want[job].get(k, 0) for k in got}
+            if got != w:
+                raise AssertionError(f"{name} rank {o['rank']} {job}: "
+                                     f"launches {got}, want {w}")
+
+
+def _mesh_serve_files(torch, seed, frames, tmp):
+    """The TP cell's serve and ``tsn_middle2`` weights (16 classes, BN
+    statistics set from ``frames`` as ``build_models`` sets them), saved
+    for the ranks; and the one-process references of both: the live bf16
+    scorer's probabilities (the kernels) and the fp32 plain model's."""
+    from ehgr_tpu_torch.eval.inference import make_score_fn
+    from ehgr_tpu_torch.models.tsn import variant
+
+    files, refs = {}, {}
+    for job, arch, mode in (("score", "tsn", "mega"),
+                            ("middle2", "tsn_middle2", "prologue")):
+        models = [variant(arch, num_class=MESH_TP_CLASSES, num_segments=T,
+                          action_fused=m, dtype=torch.float32, device="cuda",
+                          generator=torch.Generator().manual_seed(seed))
+                  for m in (mode, None)]
+        set_bn_stats(torch, models[1], _clips(torch, frames))
+        models[0].load_state_dict(models[1].state_dict())
+        files[job] = os.path.join(tmp, f"mesh_{job}.pth")
+        torch.save(models[1].state_dict(), files[job])
+        probs = {}
+        for name, m, dname in (("live", models[0], "bfloat16"),
+                               ("plain_fp32", models[1], "float32")):
+            m.dtype = getattr(torch, dname)
+            probs[name] = make_score_fn(m, device="cuda", crop_size=CROP,
+                                        dtype_name=dname)(frames).float() \
+                .cpu().numpy()
+        refs[job] = probs
+        del models
+    return files, refs
+
+
+def mesh_phase(torch, seed, mega, shk, gen, batches):
+    """The mesh (``parallel/mesh.py``) on this card, at full width (TSN +
+    ACTION ResNet-50, T=8, 224^2, TRAIN_CLIPS clips a global batch), held
+    to one process on the same card:
+
+    (a) data=2, model=1: two ranks share the card over gloo, 83 classes
+        (heads replicated): one fp32 ``mtmm_sd`` step, its all-reduced
+        gradients by train_parity's rule against a float64 one-process run
+        of the plain model, its BN running statistics within
+        MESH_STAT_TOL of the one-process fp32 step's and its loss within
+        LOSS_TOL; then bf16 steps timed, beside the same steps in one
+        process;
+    (b) data=1, model=2 at MESH_TP_CLASSES (the heads shard): the same
+        step gate; the state's checkpoint (gathered) restored in one
+        process bitwise; the sharded scorer ('mega', bf16) on the first
+        request batch and the ``tsn_middle2`` deploy ('prologue') against
+        the fp32 plain model within BF16_SLACK times the live scorer's own
+        bf16 error plus LOGIT_TOL;
+    (c) NCCL: one rank on cuda:0 (an all_reduce and a broadcast, bf16
+        steps); two ranks when the machine has two cards.
+
+    The kernels are first checked at each rank's MESH_RANK_CLIPS clips.
+    Every rank's launches are counted per job and must be as one process
+    makes them; their window sizes join the coverage check."""
+    from ehgr_tpu_torch.parallel.mesh import run_ranks
+    from ehgr_tpu_torch.train.checkpoints import load_train_state
+
+    t_phase = time.perf_counter()
+    checks = check_kernels(torch, mega, MESH_RANK_CLIPS, gen, shapes=[
+        (MESH_RANK_CLIPS, T) + s[:3] for s in SITES])[0]
+    checks += check_shift(torch, shk, MESH_RANK_CLIPS, gen, shapes=[
+        (MESH_RANK_CLIPS, T, s, c) for s, c, _ in _shift_shapes()])
+    frames = batches[0][0]
+    kw = dict(device="cuda", timeout=MESH_GROUP_S, deadline=MESH_JOIN_S)
+    step_want = {"grad": MESH_F32_STEP,
+                 "bf16": {**SHIFT_STEP, **MEGA_FORWARD},
+                 "score": MEGA_FORWARD, "middle2": MIDDLE2_FORWARD}
+    out, paths = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        files, serve_refs = _mesh_serve_files(torch, seed, frames, tmp)
+        files["ckpt"] = os.path.join(tmp, "mesh_1x2_ckpt.pth")
+        one = {}
+        for cell, classes in (("dp", CLASSES), ("tp", MESH_TP_CLASSES)):
+            batch = _mesh_batch(seed, classes)
+            dev = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+            refs = {dt: _parity_grads(torch, seed, None, dt, dev, None,
+                                      "tsn_mtmm_sd", "mtmm_sd",
+                                      classes=classes)
+                    for dt in (torch.float64, torch.float32)}
+            r = _mesh_grad_step(torch, None, seed, classes, False, batch)
+            one[cell] = dict(
+                batch=batch, loss=r["loss"],
+                ref={k: v.cpu().numpy() for k, v in
+                     refs[torch.float64][1].items()},
+                plain={k: v.cpu().numpy() for k, v in
+                       refs[torch.float32][1].items()},
+                stats={k: v.cpu().numpy()
+                       for k, v in r["state"].batch_stats.items()})
+            del refs, r, dev
+            torch.cuda.empty_cache()
+        one_bf16 = _mesh_bf16_steps(torch, None, seed, CLASSES, False,
+                                    one["dp"]["batch"])
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        dp = run_ranks(mesh_rank, 2, 1, backend="gloo", **kw,
+                       args=("dp", seed, CLASSES, False, one["dp"]["batch"],
+                             ("grad", "bf16")))
+        dp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tp = run_ranks(mesh_rank, 2, 2, backend="gloo", **kw,
+                       args=("tp", seed, MESH_TP_CLASSES, True,
+                             one["tp"]["batch"],
+                             ("grad", "save", "score", "middle2"), files,
+                             frames))
+        tp_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        nccl = run_ranks(mesh_rank, 1, 1, backend="nccl", **kw,
+                         args=("nccl", seed, CLASSES, False,
+                               one["dp"]["batch"], ("collectives", "bf16")))
+        if torch.cuda.device_count() >= 2:
+            nccl += run_ranks(mesh_rank, 2, 1, backend="nccl", **kw,
+                              args=("nccl2", seed, CLASSES, False,
+                                    one["dp"]["batch"],
+                                    ("collectives", "bf16")))
+        nccl_s = time.perf_counter() - t0
+
+        # (a) and (b): the gradient gate, the statistics, the loss
+        for cell, outs in (("dp", dp), ("tp", tp)):
+            _check_rank_launches(f"mesh_{cell}", outs, step_want)
+            grads = dict(outs[0]["grad"]["grads"])
+            for k in outs[0].get("head_shards", {}):
+                grads[k] = np.concatenate([o["grad"]["grads"][k]
+                                           for o in outs[:2]])
+            gate = _mesh_grad_gate(f"mesh_{cell}", grads, one[cell]["ref"],
+                                   one[cell]["plain"])
+            stat_rel = {k: _np_rel(v, one[cell]["stats"][k])
+                        for k, v in outs[0]["grad"]["stats"].items()}
+            worst = max(stat_rel, key=stat_rel.get)
+            loss_rel = abs(outs[0]["grad"]["loss"] - one[cell]["loss"]) / \
+                abs(one[cell]["loss"])
+            out[cell] = dict(
+                ranks=len(outs), grad_gate=gate,
+                loss=outs[0]["grad"]["loss"], one_process_loss=one[cell][
+                    "loss"], loss_rel=loss_rel, loss_tol=LOSS_TOL,
+                bn_stats=dict(n=len(stat_rel), worst=stat_rel[worst],
+                              worst_key=worst, tol=MESH_STAT_TOL),
+                launches={o["rank"]: o["launches"] for o in outs})
+            if not loss_rel <= LOSS_TOL:
+                raise AssertionError(f"mesh_{cell}: loss {out[cell]}")
+            if not stat_rel[worst] <= MESH_STAT_TOL:
+                raise AssertionError(f"mesh_{cell}: BN statistics "
+                                     f"{worst} rel {stat_rel[worst]:.3e}")
+        out["dp"]["bf16"] = {"ranks": [o["bf16"] for o in dp],
+                             "one_process": one_bf16}
+
+        # (b): the checkpoint in one process, the scorer, the deploy
+        _, _, state, _ = _mesh_step(torch, None, seed, MESH_TP_CLASSES,
+                                    False, torch.float32)
+        load_train_state(files["ckpt"], state)
+        shards = tp[0]["head_shards"]
+        bad = []
+        for name, t in _state_trees(state).items():
+            for k, v in t.items():
+                if k in shards:
+                    want = np.concatenate([o["live"][name][k]
+                                           for o in tp[:2]])
+                    same = np.array_equal(v.detach().cpu().numpy(), want)
+                else:
+                    same = _sha1(v) == tp[0]["live"][name][k]
+                if not same:
+                    bad.append(f"{name} {k}")
+        out["tp"]["restore"] = dict(
+            tensors=sum(len(t) for t in _state_trees(state).values()),
+            head_shards=sorted(shards), not_bitwise=bad,
+            step=state.step)
+        del state
+        torch.cuda.empty_cache()
+        if bad or not shards:
+            raise AssertionError(f"mesh_tp restore: {bad[:10]} not "
+                                 f"bitwise, head shards {shards}")
+        for job in ("score", "middle2"):
+            ref = serve_refs[job]
+            live_rel = _np_rel(ref["live"], ref["plain_fp32"])
+            tol = BF16_SLACK * live_rel + LOGIT_TOL
+            rels = [_np_rel(o[job]["probs"], ref["plain_fp32"]) for o in tp]
+            out["tp"][job] = dict(
+                mesh_vs_fp32_rel=rels, live_vs_fp32_rel=live_rel, tol=tol,
+                mesh_vs_live_rel=[_np_rel(o[job]["probs"], ref["live"])
+                                  for o in tp],
+                shape=list(tp[0][job]["probs"].shape))
+            if tp[0][job]["probs"].shape != (VIDEOS, MESH_TP_CLASSES) or \
+                    not all(r <= tol for r in rels):
+                raise AssertionError(f"mesh_tp {job}: {out['tp'][job]}")
+
+        # (c): NCCL
+        _check_rank_launches("mesh_nccl", nccl, step_want)
+        out["nccl"] = dict(ranks=len(nccl), cards=torch.cuda.device_count(),
+                           collectives=[o["collectives"] for o in nccl],
+                           bf16=[o["bf16"] for o in nccl])
+        if not all(c["backend"] == "nccl" and c["all_reduce"] and
+                   c["broadcast"] for c in out["nccl"]["collectives"]):
+            raise AssertionError(f"mesh_nccl: {out['nccl']}")
+
+    for cell, outs in (("dp", dp), ("tp", tp), ("nccl", nccl)):
+        for o in outs:
+            WINDOW_LAUNCHES["main"] |= {tuple(w) for w in o["window"]}
+            for job, l in o["launches"].items():
+                paths[f"mesh_{cell}_rank{o['rank']}_{job}"] = dict(
+                    launches=l)
+    out["run_seconds"] = dict(dp=dp_s, tp=tp_s, nccl=nccl_s,
+                              phase=time.perf_counter() - t_phase)
+    print("mesh " + json.dumps(out), flush=True)
+    return out, paths, checks
+
+
+# ---------------------------------------------------------------------------
 # the thirteenth slice: the serving surfaces (the on-device resize, the AOT
 # artifact with the kernels as custom ops, the cascade, the stream)
 # ---------------------------------------------------------------------------
@@ -4869,6 +5394,12 @@ def main(argv=None) -> int:
 
     # the last model families: 3-D, VideoMAE, DPT and the MiDaS predictor
     families, family_paths = slice16(torch, args.seed, batches, phases)
+
+    # the mesh: ranks on this card over gloo (data parallelism with global
+    # BN statistics; tensor-parallel heads), and NCCL
+    mesh, mesh_paths, mesh_checks = phase("mesh", mesh_phase, torch,
+                                          args.seed, mega, shk, gen, batches)
+    checks += mesh_checks
     coverage = phase("window_coverage", check_window_coverage, mega, checks)
 
     timings = phase("timings", lambda: time_kernels(torch, mega, n, gen) +
@@ -4900,7 +5431,7 @@ def main(argv=None) -> int:
              "sd_actionnet_prologue": sd_an["prologue"],
              "sd_actionnet_vjp": sd_an["vjp"], "gradcam": cam,
              "case_study": case, "reproduce_smoke": repro,
-             **family_paths}
+             **family_paths, **mesh_paths}
     table = kernel_table(checks, timings,
                          {p: v["launches"] for p, v in paths.items()})
     print(json.dumps({"kernels": table, "serve": served, "logits": logits,
@@ -4924,7 +5455,7 @@ def main(argv=None) -> int:
                       "stream": stream, "backbones": bb,
                       "rehearsal": reh, "sd_actionnet": sd_an,
                       "gradcam": cam, "case_study": case,
-                      "reproduce_smoke": repro, **families,
+                      "reproduce_smoke": repro, **families, "mesh": mesh,
                       "window_coverage": coverage,
                       "phase_seconds": phases, "card": smi}))
     print(smi)

@@ -1,10 +1,8 @@
 """Typed configuration of the port: its own copy of the JAX package's
 ``DataConfig``, ``ModelConfig``, ``OptimConfig``, ``LossConfig``,
-``RunConfig``, ``Config``, ``PRESETS`` and ``config_from_args``
-(``ehgr_tpu/configs.py``), so the port imports nothing of that package.
-
-The mesh settings (``ParallelConfig``) are not ported: the port runs on one
-card until DDP is ported (ROADMAP §1, the DDP item).
+``ParallelConfig``, ``RunConfig``, ``Config``, ``PRESETS`` and
+``config_from_args`` (``ehgr_tpu/configs.py``), so the port imports nothing
+of that package.
 """
 
 from __future__ import annotations
@@ -112,6 +110,23 @@ class LossConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Mesh layout of a multi-process run (``ehgr_tpu_torch.parallel``):
+    ``world = data x model_parallel`` ranks, one process each.  Kept for
+    parity with the JAX package's config, which no code there reads either:
+    the port's mesh takes its axis names from ``parallel.mesh``
+    (``DATA_AXIS`` / ``MODEL_AXIS``) and its model-axis size from
+    ``run_ranks`` / ``make_mesh``; ``donate_state`` means nothing here."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel: int = 1           # >1 shards classifier heads over 'model'
+    # the JAX step donates its state buffers; the port's step updates the
+    # state in place, so it never holds a second copy either way: inert
+    donate_state: bool = True
+
+
+@dataclass(frozen=True)
 class RunConfig:
     """Logging and checkpoint housekeeping."""
 
@@ -134,6 +149,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     loss: LossConfig = field(default_factory=LossConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     run: RunConfig = field(default_factory=RunConfig)
 
     def replace(self, **kw) -> "Config":
@@ -198,8 +214,8 @@ def config_from_args(argv: Sequence[str],
                      default_preset: str = "ego_baseline") -> Config:
     """The CLI flags of ``ehgr_tpu.configs.config_from_args`` (the
     reference's flag names) over a preset, giving the same value for every
-    field of this ``Config`` (the JAX ``ParallelConfig`` has no
-    counterpart, nor flags)."""
+    field of this ``Config`` (neither parser has flags for
+    ``ParallelConfig``)."""
     import argparse
 
     p = argparse.ArgumentParser()
@@ -277,4 +293,5 @@ def config_from_args(argv: Sequence[str],
             ema_decay=args.ema_decay, accum_steps=args.accum_steps)
     r = upd(r, model_name=args.model_name,
             checkpoint_path=args.checkpoint_path, run_dir=args.run_dir)
-    return Config(data=d, model=m, optim=o, loss=cfg.loss, run=r).validate()
+    return Config(data=d, model=m, optim=o, loss=cfg.loss,
+                  parallel=cfg.parallel, run=r).validate()

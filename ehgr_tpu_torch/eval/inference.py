@@ -4,7 +4,9 @@
 Videos arrive as uint8 ``[V, K, T, H, W, 3]``; they are moved to the device
 as uint8, normalized there, and the ``V*K`` clips fold into one model batch.
 Each clip's softmax is averaged into one distribution per video; top-1/5 and
-a confusion matrix follow.
+a confusion matrix follow.  ``make_sharded_score_fn`` scores over a mesh
+(``parallel/mesh.py``): videos split over ``data``, heads optionally
+sharded over ``model``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import torch
 from ehgr_tpu_torch.device import DeviceLike, resolve_device
 from ehgr_tpu_torch.eval.metrics import ConfusionMatrix, topk_correct
 from ehgr_tpu_torch.ops.preprocess_device import preprocess_eval_batch
+from ehgr_tpu_torch.parallel.collectives import sum_over
+from ehgr_tpu_torch.parallel.mesh import shard_model
 
 
 def make_score_fn(model: torch.nn.Module, *, device: DeviceLike = None,
@@ -47,6 +51,44 @@ def make_score_fn(model: torch.nn.Module, *, device: DeviceLike = None,
         return probs if heads > 1 else probs[0]
 
     return score
+
+
+def make_sharded_score_fn(model: torch.nn.Module, mesh, *,
+                          model_parallel: bool = False,
+                          **score_kw) -> Callable:
+    """Data-parallel multi-clip scorer of one rank of ``mesh``: the same
+    signature and result as ``make_score_fn``'s, on the full host batch
+    ``[V, K, T, H, W, 3]`` on every rank.  The rank scores its ``V / data``
+    videos (eval needs no traffic but the result's); with
+    ``model_parallel`` the heads shard their out-features over ``model``
+    (``parallel.mesh.shard_model``, in place) and gather their logits.
+    Every rank returns the whole ``[V, classes]`` (the tuple for ``heads >
+    1``), each rank's rows written into zeros and SUMmed over ``data``.  A
+    video count that the data axis does not divide raises
+    ``AssertionError``."""
+    shard_model(model, mesh, model_parallel)
+    score = make_score_fn(model, **{**score_kw, "device": mesh.device})
+    ndata = mesh.data_size
+
+    def fn(frames_u8):
+        v = frames_u8.shape[0]
+        if v % ndata:
+            raise AssertionError(
+                f"video batch {v} must divide data axis {ndata}")
+        per = v // ndata
+        start = mesh.data_index * per
+        probs = score(frames_u8[start:start + per])
+        outs = probs if isinstance(probs, tuple) else (probs,)
+        full = {}
+        for i, p in enumerate(outs):
+            full[i] = p.new_zeros((v,) + p.shape[1:])
+            full[i][start:start + per] = p
+        if ndata > 1:
+            full = sum_over(full, mesh.data_group)
+        outs = tuple(full[i] for i in range(len(outs)))
+        return outs if isinstance(probs, tuple) else outs[0]
+
+    return fn
 
 
 def evaluate(score_fn: Callable, batches, num_classes: int,

@@ -12,6 +12,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ehgr_tpu_torch.parallel.collectives import copy_to_group, gather_cols
+
 
 class Conv2d(nn.Conv2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -53,9 +55,23 @@ class Conv1d(nn.Conv1d):
 
 
 class Linear(nn.Linear):
+    """``tp``: set by ``parallel.mesh.shard_model`` on a head whose
+    out-features shard over the mesh's model group, ``(model group, first
+    row, full rows)``; the layer then holds its own rows, takes its input as it
+    is (the input's gradient SUMmed over the group) and returns the full
+    output, gathered over the group."""
+
+    tp = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype))
+        if self.tp is not None:
+            group, start, full = self.tp
+            x = copy_to_group(x, group)
+        y = F.linear(x, self.weight.to(x.dtype),
+                     None if self.bias is None else self.bias.to(x.dtype))
+        if self.tp is not None:
+            y = gather_cols(y, group, start, full)
+        return y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -65,19 +81,36 @@ class LayerNorm(nn.LayerNorm):
                             self.eps)
 
 
+def dropout_mask(shape, keep: float, generator,
+                 device) -> torch.Tensor:
+    """A keep mask of ``shape`` (1 with probability ``keep``) drawn from
+    ``generator``."""
+    return torch.empty(shape, device=device).bernoulli_(keep,
+                                                        generator=generator)
+
+
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator) -> torch.Tensor:
+            generator, rows=None) -> torch.Tensor:
     """Inverted dropout of ``x`` in training, its mask drawn from
     ``generator`` (a ``torch.Generator`` on ``x``'s device); ``x`` as it is
-    at eval or at rate 0."""
+    at eval or at rate 0.  ``rows=(index, count)``: ``x`` is block
+    ``index`` of ``count`` equal row blocks of a global batch (a data rank's
+    rows); the mask of the global batch is drawn and the block's rows
+    taken, so that every rank, drawing from the same generator state, drops
+    what one process would on the whole batch."""
     if not training or rate <= 0:
         return x
     if generator is None:
         raise ValueError("training with dropout needs generator=, a "
                          "torch.Generator")
     keep = 1.0 - rate
-    mask = torch.empty(x.shape, device=x.device).bernoulli_(
-        keep, generator=generator)
+    if rows is None:
+        mask = dropout_mask(x.shape, keep, generator, x.device)
+    else:
+        index, count = rows
+        n = x.shape[0]
+        mask = dropout_mask((n * count,) + tuple(x.shape[1:]), keep,
+                            generator, x.device)[index * n:(index + 1) * n]
     return x * (mask / keep).to(x.dtype)
 
 

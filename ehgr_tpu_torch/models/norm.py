@@ -10,6 +10,15 @@ module does.
 ``frozen`` (partial BN) keeps the layer on its running statistics while the
 model trains: ``train()`` cannot switch it to batch statistics.
 
+On a mesh (``parallel.mesh.shard_model`` sets ``data_group``, the mesh's
+data group where it has more than one rank), a training layer
+takes its statistics over the global batch, as JAX's BN does under GSPMD:
+the per-rank sum and then the sum of squared deviations from the global mean
+are each SUMmed over the data group (two passes: summing x and x^2 cancels
+badly at the stem's activations), through a differentiable ``all_reduce``;
+the running variance is updated unbiased with the global count.  Frozen
+layers and eval are as without a mesh.
+
 torch's ``num_batches_tracked`` counter is only read when momentum is None;
 the JAX variable tree has no counterpart and ``export_state_dict`` emits
 none, so here it stays out of the state_dict and a converted state_dict
@@ -20,6 +29,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ehgr_tpu_torch.parallel.collectives import all_reduce, group_size
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -34,6 +45,7 @@ class BatchNorm(nn.BatchNorm2d):
         self.register_buffer("num_batches_tracked", self.num_batches_tracked,
                              persistent=False)
         self.frozen = frozen
+        self.data_group = None
         self.train(self.training)
 
     def train(self, mode: bool = True) -> "BatchNorm":
@@ -47,11 +59,34 @@ class BatchNorm(nn.BatchNorm2d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            if self.data_group is not None:
+                return self._global_forward(x)
             return super().forward(x)
         a = self.weight * torch.rsqrt(self.running_var + self.eps)
         b = self.bias - self.running_mean * a
         shape = (1, -1) + (1,) * (x.dim() - 2)
         return x * a.to(x.dtype).view(shape) + b.to(x.dtype).view(shape)
+
+    def _global_forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Training over ``data_group``: statistics of the global batch in
+        f32 (float64 for a float64 input), the output in the input's
+        dtype."""
+        group = self.data_group
+        dims = [0] + list(range(2, x.dim()))
+        shape = (1, -1) + (1,) * (x.dim() - 2)
+        count = x.numel() // x.shape[1] * group_size(group)
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = all_reduce(xf.sum(dims), group) / count
+        d = xf - mean.view(shape)
+        var = all_reduce((d * d).sum(dims), group) / count
+        with torch.no_grad():
+            self.running_mean.mul_(1.0 - self.momentum).add_(
+                mean, alpha=self.momentum)
+            self.running_var.mul_(1.0 - self.momentum).add_(
+                var * (count / max(count - 1, 1)), alpha=self.momentum)
+        y = d * (torch.rsqrt(var + self.eps) * self.weight).view(shape) \
+            + self.bias.view(shape)
+        return y.to(x.dtype)
 
 
 class BatchNorm3d(BatchNorm):

@@ -70,7 +70,10 @@ class TSN(nn.Module):
     ``partial_bn`` keeps every ResNet BN but the stem's on its running
     statistics in training (the other families keep every BN on batch
     statistics, as JAX builds them); ``dropout`` acts on the pooled feature in
-    training, drawn from the ``generator`` passed to ``forward``.
+    training, drawn from the ``generator`` passed to ``forward`` (on a mesh,
+    ``parallel.mesh.shard_model``, the global batch's mask, this rank's
+    rows; the heads then gather their logits over the model group where
+    their out-features shard).
     ``remat`` recomputes each bottleneck in the backward pass and
     ``quantize`` makes its block convs int8 sites at eval (see
     ``ResNetBackbone``)."""
@@ -183,7 +186,10 @@ class TSN(nn.Module):
             return mids[0], taps
         feat = taps["pool"]                             # [NT, 2048]
         final_fea = feat
-        feat = dropout(feat, self.dropout, self.training, generator)
+        mesh = getattr(self, "mesh", None)
+        feat = dropout(feat, self.dropout, self.training, generator,
+                       rows=None if mesh is None else
+                       (mesh.data_index, mesh.data_size))
         logits = self._head(self.new_fc, feat)
         if self.with_sd:
             extras = tuple(

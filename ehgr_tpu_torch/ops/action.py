@@ -51,6 +51,7 @@ from ehgr_tpu_torch.ops.kernels.tsm_shift import TsmShift
 from ehgr_tpu_torch.ops.quantize import (MIN_SCALE, WeightCodes,
                                          int8_forward, record_amax)
 from ehgr_tpu_torch.ops.temporal_shift import learnable_shift, tsm_shift_init
+from ehgr_tpu_torch.parallel.collectives import group_size
 
 _MODES = {None: "none", False: "none", "none": "none", "vjp": "vjp",
           True: "prologue", "prologue": "prologue", "mega": "mega"}
@@ -197,20 +198,21 @@ class ActionConv(nn.Module):
     def _region(self, x4: torch.Tensor, h: int, w: int) -> torch.Tensor:
         """Training in mode ``'vjp'``: the gate block as ``ActionRegion``,
         then torch's running-statistics update of the ME BN (momentum 0.1,
-        unbiased variance) when it trains."""
+        unbiased variance, the global count on a mesh) when it trains."""
         bn = self.action_p3_bn1
         small = (self.action_p1_conv1.weight, self.action_p2_squeeze.weight,
                  self.action_p2_conv1.weight, self.action_p2_expand.weight,
                  bn.weight, bn.bias, self.action_p3_conv1.weight,
                  self.action_p3_expand.weight)
         out, mean, var = ActionRegion.apply(
-            x4, (h, w), bn.training, bn.eps,
+            x4, (h, w), bn.training, bn.data_group, bn.eps,
             self.action_shift.weight[:, 0, :].t(),
             self.action_p3_squeeze.weight[:, :, 0, 0].t(),
             self.net.weight[:, :, 0, 0].t(), bn.running_mean,
             bn.running_var, *small)
         if bn.training:
-            cnt = x4.numel() // x4.shape[-1]
+            cnt = x4.numel() // x4.shape[-1] * (
+                1 if bn.data_group is None else group_size(bn.data_group))
             with torch.no_grad():
                 bn.running_mean.mul_(1.0 - bn.momentum).add_(
                     mean, alpha=bn.momentum)

@@ -14,7 +14,9 @@ as ``torch.matmul``, the gate heads' VJP as autograd over the small segment,
 sums the four contributions to ``d x_shift`` in one expression and ends in
 ``learnable_shift_bwd`` (dx and the taps' gradient).  The BN statistics the
 region returns get no cotangent.  On the CPU every kernel call takes its
-plain version.
+plain version.  On a mesh the ME BN's training statistics are the global
+batch's (``bn_group``: the BN's data group), their VJP through the
+differentiable ``all_reduce``.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from ehgr_tpu_torch.ops.kernels.action_mega import (action_apply,
                                                     ste_stencil)
 from ehgr_tpu_torch.ops.kernels.shift import (learnable_shift_bwd,
                                               learnable_shift_fwd)
+from ehgr_tpu_torch.parallel.collectives import all_reduce, group_size
 
 # the gate heads' parameters, in the order the region takes them (torch
 # module layouts: Conv3d [1,1,3,3,3], Conv2d [Cr,C,1,1], Conv1d [Cr,Cr,3],
@@ -41,12 +44,15 @@ SMALL = ("k_p1", "w_sq", "k_ce", "w_exp", "bn_scale", "bn_bias", "k_dw",
 def gates_from_stats(mc: torch.Tensor, pooled: torch.Tensor,
                      x3r: torch.Tensor, small: Sequence[torch.Tensor],
                      bn_mean: torch.Tensor, bn_var: torch.Tensor, *,
-                     hw: Tuple[int, int], bn_train: bool, eps: float = 1e-5):
+                     hw: Tuple[int, int], bn_train: bool, bn_group=None,
+                     eps: float = 1e-5):
     """Gate heads from the three ``x_shift`` reductions (the JAX
     ``_gates_from_stats``): small tensors only, so the backward can take
     their VJP by autograd.  With ``bn_train`` the ME BN normalizes with the
     batch's f32 ``E[x]`` and ``E[x^2] - E[x]^2``, else with ``bn_mean`` /
-    ``bn_var``.  Returns ``(g1 [N,T,S,1], g2, g3 [N,T,C], mean, var)``."""
+    ``bn_var``; with ``bn_group`` too (a data group), the global batch's
+    over it.  Returns ``(g1 [N,T,S,1], g2, g3
+    [N,T,C], mean, var)``."""
     k_p1, w_sq, k_ce, w_exp, scale, bias, k_dw, w_me = small
     n, t, s, cr = x3r.shape
     h, w = hw
@@ -60,8 +66,11 @@ def gates_from_stats(mc: torch.Tensor, pooled: torch.Tensor,
     # ME
     if bn_train:
         xf = x3r.float()
-        mean = xf.mean((0, 1, 2))
-        var = torch.clamp((xf * xf).mean((0, 1, 2)) - mean * mean, min=0.0)
+        mean, ex2 = xf.mean((0, 1, 2)), (xf * xf).mean((0, 1, 2))
+        if bn_group is not None:
+            mean, ex2 = all_reduce(torch.stack([mean, ex2]),
+                                   bn_group) / group_size(bn_group)
+        var = torch.clamp(ex2 - mean * mean, min=0.0)
     else:
         mean, var = bn_mean, bn_var
     a = scale * torch.rsqrt(var + eps)
@@ -78,24 +87,26 @@ def gates_from_stats(mc: torch.Tensor, pooled: torch.Tensor,
 
 
 class ActionRegion(torch.autograd.Function):
-    """``ActionRegion.apply(x4, hw, bn_train, eps, shift_w [3,C], w_p3
-    [C,Cr], w_net [C,F], bn_mean, bn_var, *small)`` ->
-    ``(out [N,T,S,F], mean, var)``.  Parameters arrive in f32 and are cast
+    """``ActionRegion.apply(x4, hw, bn_train, bn_group, eps, shift_w [3,C],
+    w_p3 [C,Cr], w_net [C,F], bn_mean, bn_var, *small)`` ->
+    ``(out [N,T,S,F], mean, var)``; ``bn_group``: the ME BN's data group on
+    a mesh, else ``None``.  Parameters arrive in f32 and are cast
     to ``x4``'s dtype inside, as the module path does; their gradients
     leave in their own dtype."""
 
     @staticmethod
-    def forward(ctx, x4, hw, bn_train, eps, shift_w, w_p3, w_net, bn_mean,
-                bn_var, *small):
+    def forward(ctx, x4, hw, bn_train, bn_group, eps, shift_w, w_p3, w_net,
+                bn_mean, bn_var, *small):
         dt = x4.dtype
         sw, wp3, wn = (v.to(dt).contiguous() for v in (shift_w, w_p3, w_net))
         mc, pooled, x3r = action_stats(x4, sw, wp3)
         g1, g2, g3, mean, var = gates_from_stats(
             mc, pooled, x3r, small, bn_mean, bn_var, hw=hw,
-            bn_train=bn_train, eps=eps)
+            bn_train=bn_train, bn_group=bn_group, eps=eps)
         out = action_apply(x4, sw, g1, (g2 + g3 + 3.0).to(dt).contiguous(),
                            wn)
-        ctx.hw, ctx.bn_train, ctx.eps = hw, bn_train, eps
+        ctx.hw, ctx.bn_train, ctx.bn_group, ctx.eps = (hw, bn_train,
+                                                       bn_group, eps)
         # the running statistics are saved only where the backward reads
         # them: with bn_train the caller updates them in place next
         stats = () if bn_train else (bn_mean, bn_var)
@@ -138,7 +149,7 @@ class ActionRegion(torch.autograd.Function):
                       for v in (mc, pooled, x3r, *small)]
             outs = gates_from_stats(*leaves[:3], leaves[3:], bn_mean, bn_var,
                                     hw=ctx.hw, bn_train=ctx.bn_train,
-                                    eps=ctx.eps)[:3]
+                                    bn_group=ctx.bn_group, eps=ctx.eps)[:3]
             grads = torch.autograd.grad(outs, leaves, (dg1, dg_ch, dg_ch))
         d_mc, d_pooled, d_x3r, *d_small = grads
 
@@ -154,6 +165,6 @@ class ActionRegion(torch.autograd.Function):
 
         # the shift's transpose: dx and the taps' gradient
         dx, d_sw = learnable_shift_bwd(x4, d_s.contiguous(), sw)
-        return (dx, None, None, None, d_sw.to(shift_w.dtype),
+        return (dx, None, None, None, None, d_sw.to(shift_w.dtype),
                 d_w_p3.to(w_p3.dtype), d_w_net.to(w_net.dtype), None, None,
                 *(g.to(p.dtype) for g, p in zip(d_small, small)))

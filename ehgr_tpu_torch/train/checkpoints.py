@@ -23,6 +23,13 @@ the port does not import.  The payload (``state_payload``) holds only what
   ``schedule``        the optimizer's lr per group, ``lr_steps``, gamma,
                       momentum, weight decay and ``steps_per_epoch`` (read
                       only to warn when a resume's config differs)
+
+Across topologies: on a mesh with sharded heads, ``state_payload`` gathers
+each head shard (parameter, EMA, momentum) to its full tensor over the model
+group (a collective: every rank calls it), so a file from any mesh has one
+process's keys and shapes; ``load_train_state`` and ``load_for_model`` take
+a sharded model's rows of a full tensor.  A file restores bitwise on one
+process and on any mesh.
 """
 
 from __future__ import annotations
@@ -34,16 +41,31 @@ from typing import Dict, List, Mapping
 import torch
 from torch import nn
 
+from ehgr_tpu_torch.parallel.mesh import gather_rows, head_sharding
+
+
+def _rows(value: torch.Tensor, key: str, mesh, shards: Mapping[str, int]
+          ) -> torch.Tensor:
+    """This rank's rows of a full tensor of a head-shard key (others as
+    they are)."""
+    if key in shards and value.shape[0] == shards[key]:
+        return value[head_sharding(mesh, shards[key])]
+    return value
+
 
 @torch.no_grad()
 def merge_state_dict(model: nn.Module,
                      src: Mapping[str, torch.Tensor]) -> List[str]:
     """Copy into ``model``, in place, every tensor of ``src`` whose key and
-    shape ``model``'s ``state_dict`` has; returns the keys of ``src`` that
-    were not copied, in ``src``'s order."""
+    shape ``model``'s ``state_dict`` has (a sharded head's rows of a full
+    tensor, on a mesh); returns the keys of ``src`` that were not copied,
+    in ``src``'s order."""
     dst = model.state_dict()
+    mesh, shards = getattr(model, "mesh", None), \
+        getattr(model, "head_shards", {})
     skipped = []
     for key, value in src.items():
+        value = _rows(value, key, mesh, shards)
         if key in dst and dst[key].shape == value.shape:
             dst[key].copy_(value)
         else:
@@ -98,9 +120,14 @@ def load_for_model(path: str, model: nn.Module,
 def state_payload(state, opt) -> Dict:
     """The checkpoint payload of a ``TrainState`` and its ``SgdPolicies``
     (see the module docstring): host copies, also of a state on the CPU, so
-    the state may train on while the payload waits to be written."""
+    the state may train on while the payload waits to be written; head
+    shards gathered to their full tensors (every rank of a mesh calls
+    this)."""
+    shards = getattr(state, "head_shards", {})
+
     def host(tensors):
-        return {k: v.detach().to("cpu", copy=True)
+        return {k: (gather_rows(v.detach(), state.mesh, shards[k])
+                    if k in shards else v.detach()).to("cpu", copy=True)
                 for k, v in tensors.items()}
 
     return {"state_dict": host({**state.params, **state.batch_stats}),
@@ -114,16 +141,19 @@ def state_payload(state, opt) -> Dict:
 @torch.no_grad()
 def load_train_state(path: str, state) -> Dict:
     """Restore a full-state file into ``state`` in place (parameters, BN
-    statistics, their EMA, the momentum and both step counters) and return
-    the file's ``schedule``.  Every key and shape must match: a resume that
-    would leave a tensor at its init raises ``KeyError``."""
+    statistics, their EMA, the momentum and both step counters; a sharded
+    head's rows on a mesh) and return the file's ``schedule``.  Every key
+    and shape must match: a resume that would leave a tensor at its init
+    raises ``KeyError``."""
     payload = torch.load(path, map_location="cpu", weights_only=True)
     pairs = (("state_dict", {**state.params, **state.batch_stats}),
              ("ema_state_dict", {**state.ema_params,
                                  **state.ema_batch_stats}),
              ("momentum", state.opt_state.momentum))
     for name, dst in pairs:
-        src = payload[name]
+        src = {k: _rows(v, k, getattr(state, "mesh", None),
+                        getattr(state, "head_shards", {}))
+               for k, v in payload[name].items()}
         if sorted(src) != sorted(dst) or any(
                 src[k].shape != v.shape for k, v in dst.items()):
             missing = sorted(set(dst) - set(src))

@@ -12,7 +12,8 @@
   ``p -= lr_group*factor*buf`` with ``lr_group = f32(base_lr*mult)``.
 * Step decay: ``factor = gamma ** #(lr_steps passed)``, taken at epoch - 1
   because the reference adjusts the lr at the end of each epoch.
-* ``clip_gradient``: optax's ``clip_by_global_norm``.
+* ``clip_gradient``: optax's ``clip_by_global_norm``, over the whole
+  model on a mesh (each head shard counted once).
 * Resume: the schedule is the optimizer's own, built from the current
   config; a full-state checkpoint carries the schedule it was trained with
   only so that ``adopt_config_hyper`` can warn where the two differ.
@@ -24,11 +25,13 @@ either).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Collection, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
 from torch import nn
+
+from ehgr_tpu_torch.parallel.collectives import all_reduce
 
 # label -> (lr_mult, decay_mult)
 GROUPS: Dict[str, tuple] = {
@@ -91,11 +94,19 @@ class SgdState:
     momentum: Dict[str, torch.Tensor]       # buffer per parameter name
 
 
-def clip_gradient(grads: Mapping[str, torch.Tensor],
-                  max_norm: float) -> None:
+def clip_gradient(grads: Mapping[str, torch.Tensor], max_norm: float,
+                  sharded: Collection[str] = (), group=None) -> None:
     """Scale ``grads`` in place to global norm ``max_norm`` when above it
-    (optax ``clip_by_global_norm``)."""
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+    (optax ``clip_by_global_norm``).  On a mesh, ``sharded`` names the head
+    shards (this rank's rows): their squares are SUMmed over ``group`` (the
+    model group), so each shard counts once, as each replicated leaf
+    does."""
+    sq = {k: (g.float() ** 2).sum() for k, g in grads.items()}
+    norm2 = sum(v for k, v in sq.items() if k not in sharded)
+    if sharded:
+        norm2 = norm2 + all_reduce(
+            sum(v for k, v in sq.items() if k in sharded), group)
+    norm = torch.sqrt(norm2)
     scale = torch.where(norm < max_norm, torch.ones_like(norm),
                         max_norm / norm)
     for g in grads.values():
@@ -141,11 +152,14 @@ class SgdPolicies:
 
     @torch.no_grad()
     def step(self, params: Mapping[str, torch.Tensor],
-             grads: Mapping[str, torch.Tensor], state: SgdState) -> None:
+             grads: Mapping[str, torch.Tensor], state: SgdState,
+             sharded: Collection[str] = (), group=None) -> None:
         """One update of ``params`` and ``state`` in place, as multi-tensor
-        (``torch._foreach_*``) ops over each group."""
+        (``torch._foreach_*``) ops over each group; ``sharded`` / ``group``:
+        the head shards of a mesh run and its model group, for the global
+        clip norm."""
         if self.clip:
-            clip_gradient(grads, self.clip)
+            clip_gradient(grads, self.clip, sharded, group)
         factor = self.factor(state.step)
         keys = list(params)
         bufs = [state.momentum[k] for k in keys]

@@ -81,7 +81,7 @@ class TestRegion:
         small = [torch.from_numpy(np.ascontiguousarray(_TO_TORCH[k](p[k])))
                  .requires_grad_() for k in action_vjp.SMALL]
         out, m, v = ActionRegion.apply(
-            x4, (h, w), bn_train, 1e-5, big["shift_w"], big["w_p3"],
+            x4, (h, w), bn_train, None, 1e-5, big["shift_w"], big["w_p3"],
             big["w_net"], torch.from_numpy(p["bn_mean"]),
             torch.from_numpy(p["bn_var"]), *small)
         out.backward(torch.from_numpy(cot).reshape(out.shape))

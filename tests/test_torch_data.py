@@ -436,12 +436,13 @@ class TestConfigs:
             else argv
         got = pc.config_from_args(argv)
         want = jc.config_from_args(argv)
-        for part in ("data", "model", "optim", "loss", "run"):
+        for part in ("data", "model", "optim", "loss", "parallel", "run"):
             g = dataclasses.asdict(getattr(got, part))
             w = dataclasses.asdict(getattr(want, part))
             assert g == {k: w[k] for k in g}, part
-        assert set(dataclasses.asdict(got.run)) == \
-            set(dataclasses.asdict(want.run))
+        for part in ("parallel", "run"):
+            assert set(dataclasses.asdict(getattr(got, part))) == \
+                set(dataclasses.asdict(getattr(want, part))), part
 
     @pytest.mark.parametrize("argv", [["--quantize", "static"],
                                       ["--quantize", "dynamic"],
@@ -455,7 +456,7 @@ class TestConfigs:
             assert got.model.vit == want.model.vit == (8, 1, 2)
         else:
             assert got.model.quantize == want.model.quantize == argv[1]
-        for part in ("data", "model", "optim", "loss", "run"):
+        for part in ("data", "model", "optim", "loss", "parallel", "run"):
             g = dataclasses.asdict(getattr(got, part))
             w = dataclasses.asdict(getattr(want, part))
             assert g == {k: w[k] for k in g}, part

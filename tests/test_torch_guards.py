@@ -92,7 +92,9 @@ def test_every_module_is_found():
                  "ehgr_tpu_torch.models.videomae",
                  "ehgr_tpu_torch.models.dpt",
                  "ehgr_tpu_torch.cli.train_slowonly",
-                 "ehgr_tpu_torch.cli.train_videomae"):
+                 "ehgr_tpu_torch.cli.train_videomae",
+                 "ehgr_tpu_torch.parallel.mesh",
+                 "ehgr_tpu_torch.parallel.collectives"):
         assert want in mods
 
 
