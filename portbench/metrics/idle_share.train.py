@@ -1,0 +1,7 @@
+"""Share of the profiled steps' stretch with nothing running on the card."""
+
+from portbench.reading import idle_share
+
+
+def read(rec):
+    return idle_share(rec, "train")
