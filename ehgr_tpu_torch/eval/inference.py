@@ -4,13 +4,16 @@
 Videos arrive as uint8 ``[V, K, T, H, W, 3]``; they are moved to the device
 as uint8, normalized there, and the ``V*K`` clips fold into one model batch.
 Each clip's softmax is averaged into one distribution per video; top-1/5 and
-a confusion matrix follow.  ``make_sharded_score_fn`` scores over a mesh
+a confusion matrix follow.  A scorer call opens the program's spans
+``ehgr.score`` / ``.upload`` / ``.preprocess`` / ``.model``
+(``utils/profiling.py``).  ``make_sharded_score_fn`` scores over a mesh
 (``parallel/mesh.py``): videos split over ``data``, heads optionally
 sharded over ``model``.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import numpy as np
@@ -21,6 +24,7 @@ from ehgr_tpu_torch.eval.metrics import ConfusionMatrix, topk_correct
 from ehgr_tpu_torch.ops.preprocess_device import preprocess_eval_batch
 from ehgr_tpu_torch.parallel.collectives import sum_over
 from ehgr_tpu_torch.parallel.mesh import shard_model
+from ehgr_tpu_torch.utils.profiling import span
 
 
 def make_score_fn(model: torch.nn.Module, *, device: DeviceLike = None,
@@ -36,19 +40,25 @@ def make_score_fn(model: torch.nn.Module, *, device: DeviceLike = None,
     dev = resolve_device(device)
     dtype = getattr(torch, dtype_name)
     model.eval()
+    calls = itertools.count()
 
     @torch.inference_mode()
     def score(frames_u8) -> torch.Tensor:
-        x = torch.as_tensor(frames_u8).to(dev)
-        v, k, t = x.shape[:3]
-        x = preprocess_eval_batch(x, scale_size=scale_size,
-                                  crop_size=crop_size,
-                                  square_resize=square_resize, dtype=dtype)
-        out = model(x.reshape((v * k, t) + x.shape[3:]))      # [V*K, C]
-        outs = out if isinstance(out, tuple) else (out,)
-        probs = tuple(torch.softmax(lg, dim=-1).reshape(v, k, -1)
-                      .mean(dim=1) for lg in outs[:heads])     # clip voting
-        return probs if heads > 1 else probs[0]
+        with span("ehgr.score", next(calls)):
+            with span("ehgr.score.upload"):
+                x = torch.as_tensor(frames_u8).to(dev)
+            v, k, t = x.shape[:3]
+            with span("ehgr.score.preprocess"):
+                x = preprocess_eval_batch(x, scale_size=scale_size,
+                                          crop_size=crop_size,
+                                          square_resize=square_resize,
+                                          dtype=dtype)
+            with span("ehgr.score.model"):
+                out = model(x.reshape((v * k, t) + x.shape[3:]))  # [V*K, C]
+            outs = out if isinstance(out, tuple) else (out,)
+            probs = tuple(torch.softmax(lg, dim=-1).reshape(v, k, -1)
+                          .mean(dim=1) for lg in outs[:heads])  # clip voting
+            return probs if heads > 1 else probs[0]
 
     return score
 

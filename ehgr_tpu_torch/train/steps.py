@@ -9,7 +9,9 @@ depth; the local decoder's map is not supervised).
 
 One step: uint8 batch to the model's device, ``normalize_clip`` in f32,
 forward in the model's compute dtype, loss, backward, the policy SGD update
-and the EMA blend of the parameters and BN running statistics.  Batches are
+and the EMA blend of the parameters and BN running statistics; the program's
+spans ``ehgr.step`` / ``.copy`` / ``.forward`` / ``.backward`` / ``.update``
+mark those phases (``utils/profiling.py``).  Batches are
 ``{"rgb": uint8 [N,T,H,W,3], "depth": uint8 [N,T,H,W,1] (mtmm),
 "label": [N]}``, numpy or tensors (depth for ``mtmm`` and ``mtmm_sd``).
 
@@ -43,6 +45,7 @@ from ehgr_tpu_torch.parallel.mesh import shard_batch
 from ehgr_tpu_torch.train import losses
 from ehgr_tpu_torch.train.ema import ema_update
 from ehgr_tpu_torch.train.optim import SgdPolicies, SgdState
+from ehgr_tpu_torch.utils.profiling import span
 
 STAGES = ("baseline", "mtmm", "sd", "mtmm_sd")
 
@@ -160,40 +163,47 @@ def make_train_step(model: nn.Module, opt: SgdPolicies, *, stage: str,
         if n % accum_steps:
             raise ValueError(
                 f"batch size {n} not divisible by accum_steps={accum_steps}")
-        if split:
-            batch = shard_batch(batch, mesh, accum_steps)
-        batch = _to_device(batch, device)
-        model.train()
-        for p in state.params.values():
-            p.grad = None
-        totals, auxes, c1, c5 = [], [], 0, 0
-        for mb in ({k: v.chunk(accum_steps)[i] for k, v in batch.items()}
-                   for i in range(accum_steps)):
-            total, aux, logits = loss_fn(mb, generator)
-            (total / accum_steps if accum_steps > 1 else total).backward()
-            k1, k5 = topk_correct(logits.detach(), mb["label"], (1, 5))
-            totals.append(total.detach())
-            auxes.append({k: v.detach() for k, v in aux.items()})
-            c1, c5 = c1 + k1, c5 + k5
-        grads = {k: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for k, p in state.params.items()}
-        if split:
-            all_reduce_grads(grads.values(), mesh.data_group)
-        opt.step(state.params, grads, state.opt_state,
-                 sharded=state.head_shards,
-                 group=None if mesh is None else mesh.model_group)
-        ema_update(state.ema_params, state.params, ema_decay)
-        ema_update(state.ema_batch_stats, state.batch_stats, ema_decay)
-        state.step += 1
-        metrics = {"loss": torch.stack(totals).mean(), "c1": c1, "c5": c5}
-        metrics.update({k: torch.stack([a[k] for a in auxes]).mean()
-                        for k in auxes[0]})
-        if split:
-            metrics = sum_over(metrics, mesh.data_group)
-        c1, c5 = metrics.pop("c1"), metrics.pop("c5")
-        metrics = {"loss": metrics.pop("loss"), "top1": 100.0 * c1 / n,
-                   "top5": 100.0 * c5 / n, **metrics}
-        return state, metrics
+        with span("ehgr.step", state.step):
+            with span("ehgr.step.copy"):
+                if split:
+                    batch = shard_batch(batch, mesh, accum_steps)
+                batch = _to_device(batch, device)
+            model.train()
+            for p in state.params.values():
+                p.grad = None
+            totals, auxes, c1, c5 = [], [], 0, 0
+            for mb in ({k: v.chunk(accum_steps)[i] for k, v in batch.items()}
+                       for i in range(accum_steps)):
+                with span("ehgr.step.forward"):
+                    total, aux, logits = loss_fn(mb, generator)
+                with span("ehgr.step.backward"):
+                    (total / accum_steps if accum_steps > 1
+                     else total).backward()
+                k1, k5 = topk_correct(logits.detach(), mb["label"], (1, 5))
+                totals.append(total.detach())
+                auxes.append({k: v.detach() for k, v in aux.items()})
+                c1, c5 = c1 + k1, c5 + k5
+            with span("ehgr.step.update"):
+                grads = {k: p.grad if p.grad is not None
+                         else torch.zeros_like(p)
+                         for k, p in state.params.items()}
+                if split:
+                    all_reduce_grads(grads.values(), mesh.data_group)
+                opt.step(state.params, grads, state.opt_state,
+                         sharded=state.head_shards,
+                         group=None if mesh is None else mesh.model_group)
+                ema_update(state.ema_params, state.params, ema_decay)
+                ema_update(state.ema_batch_stats, state.batch_stats, ema_decay)
+            state.step += 1
+            metrics = {"loss": torch.stack(totals).mean(), "c1": c1, "c5": c5}
+            metrics.update({k: torch.stack([a[k] for a in auxes]).mean()
+                            for k in auxes[0]})
+            if split:
+                metrics = sum_over(metrics, mesh.data_group)
+            c1, c5 = metrics.pop("c1"), metrics.pop("c5")
+            metrics = {"loss": metrics.pop("loss"), "top1": 100.0 * c1 / n,
+                       "top5": 100.0 * c5 / n, **metrics}
+            return state, metrics
 
     return train_step
 

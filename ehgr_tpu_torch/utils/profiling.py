@@ -4,8 +4,30 @@
 * ``trace(logdir)``: a context manager around ``torch.profiler`` that
   writes one Chrome trace (``trace.json``) of what runs inside it, CPU and,
   where a card is present, CUDA activity.
-* ``annotate(name)``: a labelled host span in that trace
-  (``torch.profiler.record_function``).
+* ``span(name, args)``: a span of the program in that trace, and in any
+  other ``torch.profiler`` run.  While a profiler records it is a
+  ``torch.profiler.record_function``, which lands on the clock of the
+  card's trace; otherwise it is one shared no-op, so a span off costs one
+  flag check.  The program opens its spans at the boundaries of its layers:
+
+  - ``ehgr.score`` (``eval/inference.py``, one scorer call, ``args`` its
+    sequence number) around ``ehgr.score.upload`` (the host batch to the
+    card), ``ehgr.score.preprocess`` (normalise and resize) and
+    ``ehgr.score.model`` (the forward); the softmax and the vote are
+    ``ehgr.score``'s own time;
+  - ``ehgr.step`` (``train/steps.py``, one train step, ``args`` the step
+    number) around ``ehgr.step.copy`` (the batch to the card),
+    ``ehgr.step.forward`` (``normalize_clip``, forward and loss) and
+    ``ehgr.step.backward``, once each a microbatch, and
+    ``ehgr.step.update`` (the gradients, their all-reduce on a mesh, the
+    optimizer and both EMA blends).
+
+  The backward's kernels are launched from autograd's device thread while
+  the caller waits inside ``ehgr.step.backward``: a reader of the trace
+  charges a launch to the program span open at its time, not to the
+  thread's own nesting.
+* ``launch_counts()``: a snapshot of every hand-written kernel's launch
+  counters (``ops/kernels/registry.py`` ``KERNELS``).
 * ``time_fn``: steady-state wall-clock timing with warm-up and
   percentiles; it waits for the card after each call, where the JAX
   function blocks on its outputs.
@@ -20,6 +42,7 @@ from typing import Callable, Dict, Sequence
 
 import numpy as np
 import torch
+from torch.autograd import _profiler_enabled
 
 
 def _sync() -> None:
@@ -48,8 +71,34 @@ def trace(logdir: str):
         prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str, args: object = None):
+    """A span named ``name`` (``args``: a value the trace keeps beside it as
+    a string, such as a call's sequence number) while a ``torch.profiler``
+    records; the shared no-op otherwise, with ``args`` left as it is."""
+    if not _profiler_enabled():
+        return _OFF
+    return torch.profiler.record_function(
+        name, None if args is None else str(args))
+
+
+def launch_counts() -> Dict[str, int]:
+    """Every hand-written kernel's launches so far, by wrapper
+    (``action_stats``) and, where it counts them, by route
+    (``action_stats/window``) or by direction (``tsm_shift/reverse``); a
+    later snapshot less an earlier one counts the launches between."""
+    from ehgr_tpu_torch.ops.kernels.registry import KERNELS
+
+    out = {}
+    for name, wrapper in KERNELS.items():
+        out[name] = wrapper.launches
+        for route, n in getattr(wrapper, "route_launches", {}).items():
+            out[f"{name}/{route}"] = n
+        if hasattr(wrapper, "reverse_launches"):
+            out[f"{name}/reverse"] = wrapper.reverse_launches
+    return out
 
 
 def time_fn(fn: Callable, *args, warmup: int = 3, iters: int = 10,

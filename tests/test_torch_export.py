@@ -17,9 +17,6 @@ import jax
 import jax.numpy as jnp
 
 from ehgr_tpu.compat.torchvision_shim import install as _install_tv
-
-_install_tv()
-
 from ehgr_tpu.models.torch_import import (convert_state_dict,
                                           export_state_dict,
                                           load_torch_checkpoint,
@@ -28,6 +25,19 @@ from ehgr_tpu.models.tsn import variant
 
 REF = "/root/reference"
 N, T, H, CLS = 2, 4, 64, 7
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _torchvision_shim():
+    """The torchvision shim, for this module's tests only: it has no
+    ``__spec__``, so left in ``sys.modules`` it breaks a later import of
+    ``transformers`` in the same process (``find_spec("torchvision")``)."""
+    _install_tv()
+    yield
+    for k in [k for k, v in sys.modules.items()
+              if k.split(".")[0] == "torchvision"
+              and getattr(v, "__spec__", None) is None]:
+        del sys.modules[k]
 
 
 def _flax(arch, seed=0):

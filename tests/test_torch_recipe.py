@@ -444,7 +444,7 @@ class TestProfiling:
     def test_trace_writes_a_file(self, tmp_path):
         x = torch.ones(32, 32)
         with profiling.trace(str(tmp_path / "trace")) as prof:
-            with profiling.annotate("ehgr_span"):
+            with profiling.span("ehgr_span"):
                 torch.matmul(x, x)
         path = tmp_path / "trace" / "trace.json"
         assert path.stat().st_size > 0
